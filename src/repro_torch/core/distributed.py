@@ -1,0 +1,787 @@
+"""Port of ``repro.core.distributed``: the DA-MolDQN trainer on one GPU.
+
+N workers, each owning a batch of start molecules and a private replay
+buffer, cooperate on ONE general model.  Worker parameters are stacked
+along a leading ``[W, ...]`` axis on ``device`` (the GPU unless the caller
+names another).  The two synchronisation regimes of the reference:
+
+* ``sync_mode="step"``    — MT-MolDQN/DDP: gradients are averaged across
+  workers at every optimiser step (parameters stay replicated);
+* ``sync_mode="episode"`` — DA-MolDQN: every worker updates its own
+  parameters, and parameters and Adam moments are averaged once per
+  episode boundary.
+
+Both averages are ``_fleet_mean``: a sum over the whole live worker axis in
+worker order, divided by the live count, as the reference's ``fleet_mean``
+is.  Per-worker updates run serially, one Python loop over workers with
+autograd on each worker's own parameter slice, as the reference's
+``lax.scan`` does.
+
+Acting is host-driven through ``RolloutEngine``: every environment step is
+one Q dispatch over every worker's candidates and one property batch.  On
+the card each fleet dispatch is one launch of the hand-written CUDA
+``packed_qnet_stacked`` kernel (``acting="packed"`` and ``"packed_async"``
+read u8 fingerprint planes; ``"dense"`` reads f32 rows through the same
+kernel's dense loader, with the same bits); on the CPU the wrappers run
+their plain versions.  ``rollout="per_worker"`` dispatches each worker's
+rows through ``fused_qnet``.  There is one device, so ``"fleet_sharded"``
+is the same dispatch as ``"fleet"`` and ``n_padded_workers ==
+n_workers`` until the multi-GPU port (ROADMAP A6); ``"fleet_pipelined"``
+adds the engine's double-buffered host step.
+
+Learning is the reference's double-DQN loss with the hand-ported Adam
+(``optim/adam.py``) under ``TrainerConfig.learner``: ``"dense"`` ships
+host-densified f32 batches, ``"packed"`` ships u8 planes and densifies on
+the device (``packed_batch.densify_batch``), and ``"packed_pipelined"``
+draws update k+1's packed batch on a sampler thread while update k runs.
+All three give the same batches, so the same losses and parameters.  The
+learner's products are ``torch.matmul`` under autograd; the reference
+leaves them to XLA and has no kernel there.
+
+Checkpointing (``state_dict`` and friends) arrives with ROADMAP A2;
+``greedy_optimize`` and ``optimization_failure_rate`` with A4.
+"""
+
+from __future__ import annotations
+
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field, replace
+
+import numpy as np
+import torch
+
+from repro_torch.chem.chemcache import ChemCache
+from repro_torch.chem.molecule import Molecule
+from repro_torch.core.agent import (
+    DQNAgent, DQNConfig, Layers, QNetwork, candidate_capacity,
+    candidate_capacity_table, dqn_loss, flat, unflat,
+)
+from repro_torch.core.env import BatchedEnv, EnvConfig, StepRecord
+from repro_torch.core.packed_batch import densify_batch, packed_nbytes
+from repro_torch.core.replay import FP_BYTES, ReplayBuffer
+from repro_torch.core.reward import RewardConfig
+from repro_torch.core.rollout import CHEM_MODES, STATE_DIM, RolloutEngine
+from repro_torch.device import resolve_device
+from repro_torch.kernels.fused_qnet.ops import fused_qnet
+from repro_torch.kernels.packed_qnet.ops import (dense_qnet_stacked,
+                                                 packed_qnet_stacked)
+from repro_torch.optim.adam import OptState, adam, apply_updates
+
+ROLLOUT_MODES = ("fleet", "fleet_sharded", "fleet_pipelined", "per_worker")
+_FLEET_MODES = ("fleet", "fleet_sharded", "fleet_pipelined")
+LEARNER_MODES = ("packed", "packed_pipelined", "dense")
+# replay sampling (core.replay.SAMPLING_MODES): "uniform" is the reference
+# path; "prioritized" is proportional PER with |TD| feedback after every
+# update.  With all-equal effective priorities (priority_alpha = 0)
+# prioritized is bit-identical to uniform: same RNG stream, unit weights.
+REPLAY_MODES = ("uniform", "prioritized")
+# fleet acting-batch representation, all transition-identical:
+#   "packed"        u8 bit planes straight from the slots' cand_fps_packed
+#   "packed_async"  packed + the async Q protocol: the dispatch returns a
+#                   handle, eps-greedy decisions are pre-drawn, and the
+#                   fetch is the one synchronisation point
+#   "dense"         [W, C, STATE_DIM] f32 rows, the correctness reference
+ACTING_MODES = ("packed", "packed_async", "dense")
+
+
+@dataclass(frozen=True)
+class TrainerConfig:
+    n_workers: int = 4
+    mols_per_worker: int = 4          # "Modification Batch" (Table 1)
+    episodes: int = 250               # general model (Table 1)
+    sync_mode: str = "episode"        # "episode" (DA-MolDQN) | "step" (DDP)
+    rollout: str = "fleet"            # see ROLLOUT_MODES (module docstring)
+    learner: str = "packed"           # see LEARNER_MODES (module docstring)
+    acting: str = "packed"            # see ACTING_MODES (fleet modes only;
+                                      # per_worker always acts dense)
+    chem: str = "incremental"         # candidate chemistry: rollout.CHEM_MODES
+                                      # ("full" = per-step recompute reference)
+    updates_per_episode: int = 4
+    train_batch_size: int = 32        # <= Table 2's 512 cap
+    max_candidates: int = 64          # replay target max truncation
+    replay_capacity: int = 4000       # Table 3
+    replay: str = "uniform"           # replay sampling: see REPLAY_MODES
+    priority_alpha: float = 0.6       # PER proportional exponent (0 = flat)
+    priority_beta0: float = 0.4       # importance-weight anneal start
+    priority_beta_episodes: int | None = None  # episodes for beta -> 1.0
+                                               # (None: cfg.episodes)
+    priority_eps: float = 1e-3        # |TD| priority floor
+    dataset: str | None = None        # multi-start episode stream: draw each
+                                      # episode's start molecules from a
+                                      # seeded data.datasets cursor (DATASETS
+                                      # name); None = fixed ctor molecules
+    dataset_size: int | None = None   # pool size (None: dataset default)
+    dataset_seed: int | None = None   # pool+cursor seed (None: cfg.seed)
+    scenarios: tuple[str, ...] | None = None
+                                      # heterogeneous scenario fleet: worker w
+                                      # optimises scenarios[w % len]; None =
+                                      # every worker runs reward_cfg
+    pipeline_threads: int | None = None  # fleet_pipelined host pool (None: auto)
+    dqn: DQNConfig = field(default_factory=lambda: DQNConfig(epsilon_decay=0.97))
+    env: EnvConfig = field(default_factory=EnvConfig)
+    seed: int = 0
+
+
+def _worker_layers(layers: Layers, w: int) -> Layers:
+    """Worker ``w``'s ``[(w [in, out], b [out])]`` views of stacked layers."""
+    return [(wt[w], bt[w]) for wt, bt in layers]
+
+
+class _WorkerView:
+    """Adapter giving BatchedEnv the per-worker agent interface (the
+    sequential path: one ``fused_qnet`` launch per worker per step)."""
+
+    def __init__(self, trainer: "DistributedTrainer", w: int):
+        self.t = trainer
+        self.w = w
+
+    def q_values(self, states: np.ndarray) -> np.ndarray:
+        self.t.n_q_dispatches += 1
+        x = torch.from_numpy(np.ascontiguousarray(states, np.float32))
+        q = fused_qnet(_worker_layers(self.t.params, self.w),
+                       x.to(self.t.device))
+        return q.cpu().numpy()
+
+    def select_action(self, q: np.ndarray) -> int:
+        return self.t._select_action(q, self.w)
+
+
+class _QHandle:
+    """An in-flight fleet Q dispatch: the host array once ``done`` has
+    fired (on the CPU it is computed already), the per-worker counts, and
+    on the card the CUDA events that time the copy in and the kernel."""
+
+    def __init__(self, q_host: np.ndarray | None, counts: list[int],
+                 done=None, events=None):
+        self.q_host, self.counts, self.done, self.events = \
+            q_host, counts, done, events
+
+
+class _FleetView:
+    """FleetPolicy over the trainer's stacked per-worker parameters: ONE
+    kernel launch evaluates every worker's candidates under that worker's
+    own parameters.
+
+    The candidate axis is padded to a rung of the capacity ladder
+    (``candidate_capacity_table``) and the host batch buffer is a sticky
+    high-water mark, as in the reference; the kernel masks nothing past the
+    buffer, and the padded rows are zero planes.  On the card the host
+    buffers are pinned, the copy in and the copy of Q back are queued with
+    ``non_blocking=True`` behind the kernel, and ``fleet_q_fetch`` waits on
+    one event: the only synchronisation point of a dispatch.  CUDA events
+    time the copy in and the kernel (``dispatch_timing``).
+    """
+
+    def __init__(self, trainer: "DistributedTrainer", acting: str = "dense"):
+        self.t = trainer
+        self.acting = acting
+        # engine-facing protocol switches (see rollout.FleetPolicy)
+        self.wants_packed_states = acting != "dense"
+        self.async_q = acting == "packed_async"
+        self._table = candidate_capacity_table(trainer.cfg.n_workers)
+        self._host: list[torch.Tensor] = []   # dense, or bits + frac
+        self._q_out: torch.Tensor | None = None
+        self._cap = 0
+        self.h2d_ms = 0.0
+        self.kernel_ms = 0.0
+        self.n_timed = 0
+
+    def _alloc(self, shape, dtype) -> torch.Tensor:
+        pin = self.t.device.type == "cuda"
+        return torch.zeros(shape, dtype=dtype, pin_memory=pin)
+
+    def reserve(self, max_candidates: int) -> None:
+        """Pre-grow the batch buffers (ladder-rounded)."""
+        cap = candidate_capacity(max_candidates, self._table)
+        if cap > self._cap:
+            self._cap = cap
+            W = self.t.n_padded_workers
+            if self.wants_packed_states:
+                self._host = [self._alloc((W, cap, FP_BYTES), torch.uint8),
+                              self._alloc((W, cap), torch.float32)]
+            else:
+                self._host = [self._alloc((W, cap, STATE_DIM), torch.float32)]
+            self._q_out = self._alloc((W, cap), torch.float32)
+
+    def warm_dispatch(self) -> None:
+        """Run the current capacity once (builds the kernel at first use)."""
+        n = self.t.engine.n_workers
+        if self.wants_packed_states:
+            self.fleet_q_fetch(self.fleet_q_dispatch_packed(
+                [np.zeros((1, FP_BYTES), np.uint8)] * n,
+                [np.zeros((1,), np.float32)] * n))
+        else:
+            self.fleet_q_values([np.zeros((1, STATE_DIM), np.float32)] * n)
+
+    def _dispatch(self, counts: list[int]) -> _QHandle:
+        t = self.t
+        t.n_q_dispatches += 1
+        t.acting_h2d_bytes += sum(h.numel() * h.element_size() for h in self._host)
+        kernel = packed_qnet_stacked if self.wants_packed_states \
+            else dense_qnet_stacked
+        if t.device.type != "cuda":
+            return _QHandle(kernel(t.params, *self._host).numpy(), counts)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        xs = [h.to(t.device, non_blocking=True) for h in self._host]
+        ev[1].record()
+        q = kernel(t.params, *xs)
+        ev[2].record()
+        self._q_out.copy_(q, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return _QHandle(None, counts, done, ev)
+
+    # ---- dense reference ---------------------------------------- #
+    def fleet_q_values(self, per_worker: list[np.ndarray]) -> list[np.ndarray]:
+        counts = [x.shape[0] for x in per_worker]
+        if not any(counts):
+            return [np.zeros((0,), np.float32) for _ in per_worker]
+        self.reserve(max(counts))
+        dense = self._host[0].numpy()   # never sliced down: shapes only grow
+        for w, x in enumerate(per_worker):
+            dense[w, : x.shape[0]] = x
+            dense[w, x.shape[0]:] = 0.0  # clear rows left by the last step
+        return self.fleet_q_fetch(self._dispatch(counts))
+
+    # ---- packed protocol (rollout.FleetPolicy) ------------------- #
+    def fleet_q_dispatch_packed(self, bits_pw: list[np.ndarray],
+                                frac_pw: list[np.ndarray]) -> _QHandle:
+        """Copy the per-worker planes into the sticky buffers and dispatch
+        without waiting for the result."""
+        counts = [b.shape[0] for b in bits_pw]
+        if not any(counts):
+            return _QHandle(None, counts)
+        self.reserve(max(counts))
+        bits, frac = (h.numpy() for h in self._host)
+        for w, (b, f) in enumerate(zip(bits_pw, frac_pw)):
+            n = b.shape[0]
+            bits[w, :n] = b
+            bits[w, n:] = 0   # dead/finished rows: zero planes, never garbage
+            frac[w, :n] = f
+            frac[w, n:] = 0.0
+        return self._dispatch(counts)
+
+    def fleet_q_fetch(self, handle: _QHandle) -> list[np.ndarray]:
+        """Wait for the dispatch and slice its Q back per worker."""
+        if handle.done is None and handle.q_host is None:
+            return [np.zeros((0,), np.float32) for _ in handle.counts]
+        qh = handle.q_host
+        if handle.done is not None:
+            handle.done.synchronize()
+            ev = handle.events
+            self.h2d_ms += ev[0].elapsed_time(ev[1])
+            self.kernel_ms += ev[1].elapsed_time(ev[2])
+            self.n_timed += 1
+            qh = self._q_out.numpy()
+        return [qh[w, :n].copy() for w, n in enumerate(handle.counts)]
+
+    def fleet_q_values_packed(self, bits_pw: list[np.ndarray],
+                              frac_pw: list[np.ndarray]) -> list[np.ndarray]:
+        return self.fleet_q_fetch(self.fleet_q_dispatch_packed(bits_pw, frac_pw))
+
+    def plan_action(self, n_candidates: int, worker: int) -> int:
+        return self.t._plan_action(n_candidates, worker)
+
+    def select_action(self, q: np.ndarray, worker: int) -> int:
+        return self.t._select_action(q, worker)
+
+
+class DistributedTrainer:
+    """Trains ONE general model over many molecules with W workers on one
+    device.
+
+    ``network`` supplies the architecture and the initial weights every
+    worker starts from (like a DDP broadcast); None builds a He-normal
+    ``QNetwork`` from ``cfg.seed``.  Parity tests pass the reference's
+    worker-0 parameters through ``params_from_jax``.  ``device=None`` is
+    the GPU and raises without one.
+    """
+
+    def __init__(
+        self,
+        cfg: TrainerConfig,
+        molecules: list[Molecule] | None,
+        service,
+        reward_cfg: RewardConfig,
+        network: QNetwork | None = None,
+        dataset_pool: list[Molecule] | None = None,
+        fault_plan=None,
+        device: str | torch.device | None = None,
+    ):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.service = service
+        self.reward_cfg = reward_cfg
+        self.fault_plan = fault_plan
+        W = cfg.n_workers
+        need = W * cfg.mols_per_worker
+
+        # multi-start dataset streaming: with cfg.dataset set, every episode
+        # draws its start molecules from a seeded DatasetStream cursor on
+        # the host, before any rollout-mode branch
+        self._dataset_stream = None
+        if cfg.dataset is not None:
+            if molecules is not None:
+                raise ValueError(
+                    "pass molecules=None when cfg.dataset streams the "
+                    "episode starts (the fixed batch would be ignored)")
+            from repro_torch.data.datasets import DatasetStream, load_dataset
+            pool = dataset_pool if dataset_pool is not None else load_dataset(
+                cfg.dataset, count=cfg.dataset_size, seed=cfg.dataset_seed)
+            dseed = cfg.seed if cfg.dataset_seed is None else cfg.dataset_seed
+            self._dataset_stream = DatasetStream(pool, seed=dseed)
+            # episode-0 placeholder (rollout_episode re-draws first)
+            molecules = [pool[i % len(pool)] for i in range(need)]
+        elif molecules is None:
+            raise ValueError("molecules=None requires cfg.dataset")
+        if len(molecules) < need:
+            raise ValueError(f"need {need} molecules for {W}x{cfg.mols_per_worker}, got {len(molecules)}")
+        self.molecules = molecules[:need]
+        self.start_log: list[tuple[str, ...]] = []  # per-episode start keys
+
+        # one device: no mesh padding until the multi-GPU port
+        self.n_live_workers = W
+        self.n_padded_workers = W
+
+        if cfg.rollout not in ROLLOUT_MODES:
+            raise ValueError(f"rollout must be one of {ROLLOUT_MODES}, got {cfg.rollout!r}")
+        if cfg.learner not in LEARNER_MODES:
+            raise ValueError(f"learner must be one of {LEARNER_MODES}, got {cfg.learner!r}")
+        if cfg.sync_mode not in ("episode", "step"):
+            raise ValueError(f"sync_mode must be 'episode' or 'step', got {cfg.sync_mode!r}")
+        if cfg.chem not in CHEM_MODES:
+            raise ValueError(f"chem must be one of {CHEM_MODES}, got {cfg.chem!r}")
+        if cfg.acting not in ACTING_MODES:
+            raise ValueError(f"acting must be one of {ACTING_MODES}, got {cfg.acting!r}")
+        if cfg.replay not in REPLAY_MODES:
+            raise ValueError(f"replay must be one of {REPLAY_MODES}, got {cfg.replay!r}")
+
+        if hasattr(service, "reserve"):
+            service.reserve(W * cfg.mols_per_worker)
+
+        # ONE chemistry cache for the whole trainer
+        self.chem_cache = ChemCache() if cfg.chem == "incremental" else None
+        self.engine = RolloutEngine(
+            [self.molecules[w * cfg.mols_per_worker : (w + 1) * cfg.mols_per_worker]
+             for w in range(W)],
+            cfg.env, pipeline_threads=cfg.pipeline_threads,
+            chem=cfg.chem, chem_cache=self.chem_cache,
+            pad_workers_to=self.n_padded_workers,
+            packed_states=cfg.acting != "dense",
+            fault_plan=fault_plan)
+        # heterogeneous scenario fleet: one compiled objective per worker,
+        # the same instances for the engine and the per_worker envs
+        self.worker_objectives = None
+        self.scenario_names: tuple[str, ...] | None = None
+        if cfg.scenarios:
+            from repro_torch.configs.scenarios import (
+                compile_worker_objectives, worker_scenarios)
+            base = reward_cfg if isinstance(reward_cfg, RewardConfig) else None
+            self.scenario_names = tuple(worker_scenarios(cfg.scenarios, W))
+            self.worker_objectives = compile_worker_objectives(
+                cfg.scenarios, W, base=base)
+            self.engine.set_worker_objectives(self.worker_objectives)
+        self._envs: list[BatchedEnv] | None = None  # built lazily
+        self.buffers = [ReplayBuffer(cfg.replay_capacity, seed=cfg.seed + 200 + w,
+                                     max_candidates=cfg.max_candidates,
+                                     sampling=cfg.replay,
+                                     priority_alpha=cfg.priority_alpha,
+                                     priority_eps=cfg.priority_eps)
+                        for w in range(W)]
+        self._worker_rngs = [np.random.default_rng(cfg.seed + 300 + w) for w in range(W)]
+        self.n_q_dispatches = 0    # acting-side kernel dispatches (both paths)
+        self.n_updates = 0         # learner update steps issued
+        self.h2d_update_bytes = 0  # host->device bytes shipped by update batches
+        self.acting_h2d_bytes = 0  # host->device bytes shipped by fleet Q batches
+        self.rollout_s = 0.0       # host seconds in rollout_episode
+        self.learner_s = 0.0       # host seconds in run_updates (ends synced)
+        self._sampler_pool: ThreadPoolExecutor | None = None  # packed_pipelined
+
+        # stacked per-worker parameters [W, ...]: every worker starts from
+        # the same weights
+        if network is None:
+            network = QNetwork(generator=torch.Generator().manual_seed(cfg.seed),
+                               device="cpu")
+        self.params: Layers = [
+            tuple(t.detach().to(self.device, torch.float32).unsqueeze(0)
+                  .expand((W,) + tuple(t.shape)).contiguous() for t in wb)
+            for wb in network.layers()]
+        self.target_params: Layers = self._copy(self.params)
+        self.opt = adam(cfg.dqn.lr, clip_norm=cfg.dqn.grad_clip)
+        self.opt_state = OptState(
+            step=torch.zeros(W, dtype=torch.int32, device=self.device),
+            mu=[torch.zeros_like(t) for t in flat(self.params)],
+            nu=[torch.zeros_like(t) for t in flat(self.params)])
+
+        self.epsilon = cfg.dqn.epsilon_initial
+        self.episode = 0
+        self.loss_log: list[float] = []
+        self.reward_log: list[float] = []
+        self._views = [_WorkerView(self, w) for w in range(W)]
+        self._fleet_policy = _FleetView(self, acting=cfg.acting)
+
+    @staticmethod
+    def _copy(layers: Layers) -> Layers:
+        return [(w.clone(), b.clone()) for w, b in layers]
+
+    @property
+    def envs(self) -> list[BatchedEnv]:
+        """Per-worker single-worker envs for the ``per_worker`` rollout,
+        built on first access."""
+        if self._envs is None:
+            cfg = self.cfg
+            self._envs = [
+                BatchedEnv(
+                    self.molecules[w * cfg.mols_per_worker : (w + 1) * cfg.mols_per_worker],
+                    cfg.env, chem=cfg.chem, chem_cache=self.chem_cache)
+                for w in range(cfg.n_workers)
+            ]
+        return self._envs
+
+    # ------------------------------------------------------------ #
+    # cross-worker means and the update bodies
+    # ------------------------------------------------------------ #
+    def _fleet_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """Mean over the live workers of a ``[W, ...]`` tensor: the sum in
+        worker order from +0, divided by the live count."""
+        acc = torch.zeros_like(x[0])
+        for w in range(self.n_live_workers):
+            acc = acc + x[w]
+        return acc / self.n_live_workers
+
+    def _sync(self, layers: Layers) -> Layers:
+        return [tuple(self._fleet_mean(t).unsqueeze(0).expand_as(t).contiguous()
+                      for t in wb) for wb in layers]
+
+    def _sync_opt(self, opt_state: OptState) -> OptState:
+        """Average the float moments across workers; keep the int step."""
+        avg = lambda ts: flat(self._sync(unflat(ts)))
+        return OptState(step=opt_state.step, mu=avg(opt_state.mu),
+                        nu=avg(opt_state.nu))
+
+    def _worker_loss(self, w: int, batch: dict[str, torch.Tensor]):
+        """Worker ``w``'s loss, |TD| and gradients on its own parameters."""
+        leaves = [t[w].detach().requires_grad_(True) for t in flat(self.params)]
+        loss, td = dqn_loss(unflat(leaves), _worker_layers(self.target_params, w),
+                            {k: v[w] for k, v in batch.items()},
+                            self.cfg.dqn.discount)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), td, list(grads)
+
+    @torch.no_grad()
+    def _apply_worker(self, w: int, grads: list[torch.Tensor]) -> None:
+        """One Adam step of worker ``w`` on ``grads``, written back into the
+        stacked parameters and optimizer state."""
+        params = flat(self.params)
+        st = self.opt_state
+        p = [t[w] for t in params]
+        updates, s2 = self.opt.update(
+            grads, OptState(step=st.step[w], mu=[m[w] for m in st.mu],
+                            nu=[v[w] for v in st.nu]), p)
+        for dst, new in zip(params, apply_updates(p, updates)):
+            dst[w].copy_(new)
+        for dst, new in zip(st.mu + st.nu, s2.mu + s2.nu):
+            dst[w].copy_(new)
+        st.step[w] = s2.step
+
+    def _update_once(self, batch: dict[str, torch.Tensor], packed: bool):
+        """One optimiser step under the configured sync mode; returns the
+        per-worker ``(loss [W], |td| [W, B])`` on the device."""
+        if packed:
+            batch = densify_batch(batch)
+        W = self.n_live_workers
+        losses, tds = [], []
+        if self.cfg.sync_mode == "step":
+            grads = []
+            for w in range(W):
+                loss, td, g = self._worker_loss(w, batch)
+                losses.append(loss)
+                tds.append(td)
+                grads.append(g)
+            gmean = [self._fleet_mean(torch.stack(gs)) for gs in zip(*grads)]
+            for w in range(W):
+                self._apply_worker(w, gmean)
+        else:
+            for w in range(W):
+                loss, td, g = self._worker_loss(w, batch)
+                self._apply_worker(w, g)
+                losses.append(loss)
+                tds.append(td)
+        self.n_updates += 1
+        return torch.stack(losses), torch.stack(tds)
+
+    # ------------------------------------------------------------ #
+    # training
+    # ------------------------------------------------------------ #
+    def train_episode(self) -> dict:
+        """One paper episode: rollouts on all workers, local training
+        updates, then (episode mode) the parameter sync."""
+        cfg = self.cfg
+        t0 = time.perf_counter()
+        records = self.rollout_episode()
+        self.rollout_s += time.perf_counter() - t0
+
+        losses = []
+        min_fill = min(len(b) for b in self.buffers)
+        if min_fill >= cfg.train_batch_size:
+            t0 = time.perf_counter()
+            losses = self.run_updates(cfg.updates_per_episode)
+            self.learner_s += time.perf_counter() - t0
+
+        if cfg.sync_mode == "episode":
+            self.params = self._sync(self.params)
+            self.opt_state = self._sync_opt(self.opt_state)
+
+        self.episode += 1
+        if self.episode % cfg.dqn.target_update_episodes == 0:
+            self.target_params = self._copy(self.params)
+        self.epsilon = max(self.epsilon * cfg.dqn.epsilon_decay, cfg.dqn.epsilon_min)
+
+        flat_recs = [r for recs in records for r in recs]
+        final = [r for r in flat_recs if r.done]
+        n_invalid = sum(1 for r in flat_recs if not r.conformer_valid)
+        st = {
+            "episode": self.episode,
+            "mean_final_reward": float(np.mean([r.reward for r in final])) if final else float("nan"),
+            "loss": float(np.mean(losses)) if losses else float("nan"),
+            "epsilon": self.epsilon,
+            "invalid_conformer_rate": n_invalid / max(len(flat_recs), 1),
+        }
+        self.loss_log.append(st["loss"])
+        self.reward_log.append(st["mean_final_reward"])
+        return st
+
+    def rollout_episode(self) -> list[list[StepRecord]]:
+        """One full acting episode for every worker, grouped per worker.
+
+        The fleet modes drive the RolloutEngine: all workers advance in
+        lockstep with one Q dispatch + one property batch per step
+        (``fleet_pipelined`` additionally overlaps next-step chemistry with
+        the property batch).  ``per_worker`` replays the paper's sequential
+        per-process loop.  All paths draw from the same per-worker RNG
+        streams, so they produce identical transitions."""
+        W = self.cfg.n_workers
+        if self._dataset_stream is not None:
+            self._assign_starts(
+                self._dataset_stream.draw(W * self.cfg.mols_per_worker))
+        if self.cfg.rollout in _FLEET_MODES:
+            flat_recs = self.engine.run_episode(
+                self._fleet_policy, self.service, self.reward_cfg,
+                self.buffers, pipelined=self.cfg.rollout == "fleet_pipelined")
+            records: list[list[StepRecord]] = [[] for _ in range(W)]
+            for r in flat_recs:
+                records[r.worker].append(r)
+            return records
+        records = []
+        for w, env in enumerate(self.envs):
+            rc = self.worker_objectives[w] \
+                if self.worker_objectives is not None else self.reward_cfg
+            recs = env.run_episode(self._views[w], self.service, rc,
+                                   self.buffers[w])
+            for r in recs:  # single-worker envs stamp worker=0; fix up
+                r.worker = w
+            records.append(recs)
+        return records
+
+    def _assign_starts(self, molecules: list[Molecule]) -> None:
+        """Install one episode's start molecules in the fleet engine and
+        drop the per-worker envs for lazy rebuild; log the schedule."""
+        cfg = self.cfg
+        self.molecules = list(molecules)
+        self.engine.set_initial_molecules(
+            [self.molecules[w * cfg.mols_per_worker : (w + 1) * cfg.mols_per_worker]
+             for w in range(cfg.n_workers)])
+        self._envs = None
+        self.start_log.append(tuple(m.iso_key() for m in self.molecules))
+
+    @property
+    def candidate_capacity(self) -> int:
+        """Current candidate-axis capacity of the fleet view (0 until the
+        first dispatch or ``reserve_candidates``)."""
+        return 0 if self.cfg.rollout == "per_worker" else self._fleet_policy._cap
+
+    def reserve_candidates(self, max_candidates: int) -> None:
+        """Pre-grow the fleet view's candidate capacity (ladder-rounded)
+        and run it once; bumps ``n_q_dispatches`` once if it grows.  No-op
+        for the per_worker path."""
+        if self.cfg.rollout == "per_worker":
+            return
+        view = self._fleet_policy
+        before = view._cap
+        view.reserve(max_candidates)
+        if view._cap != before:
+            view.warm_dispatch()
+
+    def dispatch_timing(self) -> dict | None:
+        """Mean host-to-device copy and kernel milliseconds per fleet Q
+        dispatch (CUDA events, warm-up included); None off the GPU."""
+        v = self._fleet_policy
+        if not v.n_timed:
+            return None
+        return {"dispatches": v.n_timed, "h2d_ms": v.h2d_ms / v.n_timed,
+                "kernel_ms": v.kernel_ms / v.n_timed}
+
+    def _select_action(self, q: np.ndarray, w: int) -> int:
+        """Decaying eps-greedy from worker ``w``'s private RNG stream."""
+        rng = self._worker_rngs[w]
+        if rng.random() < self.epsilon:
+            return int(rng.integers(0, q.shape[0]))
+        return int(np.argmax(q))
+
+    def _plan_action(self, n_candidates: int, w: int) -> int:
+        """The pre-draw half of ``_select_action`` for the async acting
+        path: consume worker ``w``'s RNG stream exactly as
+        ``_select_action`` would, without Q; return the explored index, or
+        -1 for argmax once Q lands."""
+        rng = self._worker_rngs[w]
+        if rng.random() < self.epsilon:
+            return int(rng.integers(0, n_candidates))
+        return -1
+
+    # ------------------------------------------------------------ #
+    # learner: replay sampling + update dispatch (LEARNER_MODES)
+    # ------------------------------------------------------------ #
+    def _beta(self) -> float:
+        """PER importance-weight exponent, annealed ``priority_beta0 -> 1``
+        over ``priority_beta_episodes`` (default: the full run)."""
+        cfg = self.cfg
+        horizon = cfg.priority_beta_episodes or cfg.episodes
+        frac = min(1.0, self.episode / max(1, horizon))
+        return cfg.priority_beta0 + (1.0 - cfg.priority_beta0) * frac
+
+    def _sample_kwargs(self) -> dict:
+        if self.cfg.replay == "prioritized":
+            return {"beta": self._beta()}
+        return {}
+
+    @staticmethod
+    def _stack(per: list[dict[str, np.ndarray]]) -> dict[str, np.ndarray]:
+        return {k: np.stack([p[k] for p in per]) for k in per[0]}
+
+    def _stacked_sample_np(self) -> dict[str, np.ndarray]:
+        """One dense float32 sample per worker buffer, stacked ``[W, B, ...]``."""
+        kw = self._sample_kwargs()
+        return self._stack(
+            [b.sample(self.cfg.train_batch_size, self.cfg.max_candidates, **kw)
+             for b in self.buffers])
+
+    def _stacked_sample_packed_np(self) -> dict[str, np.ndarray]:
+        """u8 planes + scalars per worker buffer, stacked ``[W, B, ...]``:
+        the same seeded draws as ``_stacked_sample_np``."""
+        kw = self._sample_kwargs()
+        return self._stack(
+            [b.sample_packed(self.cfg.train_batch_size, self.cfg.max_candidates,
+                             **kw)
+             for b in self.buffers])
+
+    def _ship(self, host_batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+        self.h2d_update_bytes += packed_nbytes(host_batch)
+        return {k: torch.from_numpy(v).to(self.device) for k, v in host_batch.items()}
+
+    def _apply_priorities(self, td: torch.Tensor) -> None:
+        """Feed the update's ``[W, B]`` |TD| back into the buffers."""
+        td_host = td.cpu().numpy()
+        for w, buf in enumerate(self.buffers):
+            buf.update_priorities(td_host[w])
+
+    def _loss_scalar(self, loss: torch.Tensor) -> float:
+        """Scalar loss over the live workers of a ``[W]`` loss vector."""
+        return float(loss.cpu().numpy()[: self.n_live_workers].mean())
+
+    def _get_sampler(self) -> ThreadPoolExecutor:
+        if self._sampler_pool is None:
+            self._sampler_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="replay-sample")
+        return self._sampler_pool
+
+    def run_updates(self, n: int) -> list[float]:
+        """``n`` optimiser steps from the replay buffers under
+        ``cfg.learner``.  ``packed_pipelined`` draws update k+1's batch on
+        the sampler thread while update k runs (sound because nothing
+        writes the buffers between updates and one thread drains each
+        buffer's RNG stream in order).  Prioritized replay runs every mode
+        sequentially: update k's |TD| must reprioritise the buffers before
+        batch k+1 is drawn."""
+        if n <= 0:
+            return []
+        mode = self.cfg.learner
+        prioritized = self.cfg.replay == "prioritized"
+        if mode != "packed_pipelined" or prioritized:
+            packed = mode != "dense"
+            losses = []
+            for _ in range(n):
+                host = self._stacked_sample_packed_np() if packed \
+                    else self._stacked_sample_np()
+                loss, td = self._update_once(self._ship(host), packed=packed)
+                if prioritized:
+                    self._apply_priorities(td)
+                losses.append(self._loss_scalar(loss))
+            return losses
+        pool = self._get_sampler()
+        fut = pool.submit(self._stacked_sample_packed_np)
+        device_losses = []
+        for k in range(n):
+            host_batch = fut.result()
+            if k + 1 < n:
+                fut = pool.submit(self._stacked_sample_packed_np)
+            device_losses.append(
+                self._update_once(self._ship(host_batch), packed=True)[0])
+        return [self._loss_scalar(l) for l in device_losses]
+
+    def train(self, episodes: int | None = None, log_every: int = 0) -> list[dict]:
+        stats = []
+        for _ in range(episodes or self.cfg.episodes):
+            st = self.train_episode()
+            stats.append(st)
+            if log_every and st["episode"] % log_every == 0:
+                print(f"[ep {st['episode']}] reward {st['mean_final_reward']:.3f} "
+                      f"loss {st['loss']:.4f} eps {st['epsilon']:.3f}")
+        return stats
+
+    def close(self) -> None:
+        """Stop the sampler thread, if one was started."""
+        if self._sampler_pool is not None:
+            self._sampler_pool.shutdown(wait=True)
+            self._sampler_pool = None
+
+    # ------------------------------------------------------------ #
+    # checkpoint / resume: ROADMAP A2
+    # ------------------------------------------------------------ #
+    def state_dict(self) -> dict[str, np.ndarray]:
+        raise NotImplementedError(
+            "DistributedTrainer.state_dict needs repro_torch.checkpoint, "
+            "which ROADMAP A2 ports")
+
+    def load_state_dict(self, flat_state) -> None:
+        raise NotImplementedError(
+            "DistributedTrainer.load_state_dict needs repro_torch.checkpoint, "
+            "which ROADMAP A2 ports")
+
+    def save_checkpoint(self, manager, step: int | None = None) -> int:
+        raise NotImplementedError(
+            "DistributedTrainer.save_checkpoint needs repro_torch.checkpoint, "
+            "which ROADMAP A2 ports")
+
+    def restore_checkpoint(self, manager, step: int | None = None) -> int:
+        raise NotImplementedError(
+            "DistributedTrainer.restore_checkpoint needs repro_torch.checkpoint, "
+            "which ROADMAP A2 ports")
+
+    # ------------------------------------------------------------ #
+    # evaluation / export
+    # ------------------------------------------------------------ #
+    def mean_params(self) -> Layers:
+        """The general model: worker-averaged ``[(w [in, out], b [out])]``."""
+        return _worker_layers(self._sync(self.params), 0)
+
+    def as_agent(self, epsilon: float = 0.0, seed: int = 1234) -> DQNAgent:
+        """Materialise the general model as a single-model DQNAgent."""
+        net = QNetwork(hidden=[w.shape[2] for w, _ in self.params[:-1]],
+                       in_dim=self.params[0][0].shape[1], device=self.device,
+                       layers=self.mean_params())
+        agent = DQNAgent(replace(self.cfg.dqn, epsilon_initial=epsilon),
+                         seed=seed, network=net, device=self.device)
+        agent.epsilon = epsilon
+        return agent

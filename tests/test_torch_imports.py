@@ -39,6 +39,21 @@ def test_port_has_the_serving_slice():
     assert (ROOT / "src/repro_torch/kernels/fused_qnet/csrc/fused_qnet.cu").is_file()
 
 
+def test_port_has_the_training_slice():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for rel in ("src/repro_torch/core/distributed.py",
+                "src/repro_torch/core/packed_batch.py",
+                "src/repro_torch/core/env.py",
+                "src/repro_torch/data/datasets.py",
+                "src/repro_torch/optim/adam.py",
+                "src/repro_torch/kernels/packed_qnet/ops.py",
+                "src/repro_torch/kernels/packed_qnet/ref.py"):
+        assert rel in names
+    for rel in ("src/repro_torch/kernels/packed_qnet/csrc/packed_qnet.cu",
+                "src/repro_torch/kernels/csrc/qnet_tiles.cuh"):
+        assert (ROOT / rel).is_file()
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[p.relative_to(ROOT).as_posix() for p in PORT_FILES])
 def test_no_jax_or_repro_import(path):
@@ -82,3 +97,19 @@ def test_service_and_launcher_default_to_cuda():
         with pytest.raises(RuntimeError, match="GPU"):
             MoleculeOptService(QNetwork(hidden=(8, 8, 8, 8), device="cpu"),
                               OracleService())
+
+
+def test_trainer_defaults_to_cuda():
+    """The trainer and agent resolve ``device=None`` to the GPU before any
+    other work, and raise without one."""
+    from repro_torch.chem.smiles import from_smiles
+    from repro_torch.core import (DQNAgent, DQNConfig, DistributedTrainer,
+                                  RewardConfig, TrainerConfig)
+    from repro_torch.predictors.service import OracleService
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device=None resolves to it")
+    mols = [from_smiles("C1=CC=CC=C1O")] * 16
+    with pytest.raises(RuntimeError, match="GPU"):
+        DistributedTrainer(TrainerConfig(), mols, OracleService(), RewardConfig())
+    with pytest.raises(RuntimeError, match="GPU"):
+        DQNAgent(DQNConfig())
