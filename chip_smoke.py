@@ -35,6 +35,28 @@ Phases, each of which exits non-zero on failure:
              run's (losses within 1e-4 rel), the acting, rollout and
              learner modes bit-identical to one another, and a run under
              a seeded FaultPlan bit-identical to its fault-free twin.
+6. lm_kernels - ``flash_attention`` and ``ssd_scan`` against their plain
+             versions (``attention_ref``; ``ssd_ref``, the naive recurrence,
+             and the model's ``ssd_chunked``) at zamba2-1.2b's prefill
+             shapes in bf16 and f32 and at small mask, GQA/MQA and group
+             shapes, within ``tests/test_kernels.py``'s tolerances; two
+             launches bit-identical; kernel, plain, library
+             (``scaled_dot_product_attention`` for causal attention; none
+             for the scan) and bound times.  ``packed_qnet`` (the W = 1
+             launch of the packed kernel) against its plain version and bit
+             for bit against ``fused_qnet`` on the densified rows.
+7. lm      - zamba2-1.2b at full width with seeded random weights made on
+             the card: the kernel route against the plain route in f32
+             (B = 1, S = 512, within 1e-3 of max |logits|, beside the plain
+             route's own rounding floor), 256 decode steps through
+             ``serve_step`` against the kernel-route forward in f32 (within
+             2e-2), and the
+             timed bf16 prefill (B = 2, S = 4096) through
+             ``make_prefill_step``: exactly 6 ``flash_attention`` and 38
+             ``ssd_scan`` launches per forward, finite logits, a
+             bit-identical rerun, tokens/s and each kernel's share; then
+             ``python -m repro_torch.launch.serve`` at its defaults must
+             exit 0.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -61,9 +83,39 @@ STACKED_SHAPES = ((1, 5), (3, 300), (4, 1024), (128, 32))   # workers x rows
 TRAIN_EPISODES = 3
 TRAIN_LOSS_RTOL = 1e-4          # GPU vs CPU losses: cuBLAS vs CPU BLAS sums
 
-# dense peaks by card (NVIDIA data sheets): f32 FMA FLOP/s, HBM bytes/s
-PEAKS = (("H100 PCIe", 51.2e12, 2.0e12), ("H100 NVL", 60.0e12, 3.9e12),
-         ("H100", 66.9e12, 3.35e12), ("H200", 66.9e12, 4.8e12))
+# LM slice: zamba2-1.2b's prefill shapes, and tests/test_kernels.py's
+# tolerances for the Pallas kernels (flash :20-21, :57; ssd :89-90, :102-103)
+LM_ARCH = "zamba2-1.2b"
+FLASH_PATH = (2, 4096, 32, 32, 64)              # B, S, H, K, D; causal
+FLASH_SMALL = (                                  # B, S, H, K, D, causal, window, prefix
+    (2, 256, 4, 2, 64, True, None, 0), (1, 128, 4, 4, 128, True, None, 0),
+    (2, 256, 8, 1, 64, True, None, 0), (1, 512, 2, 2, 32, True, None, 0),
+    (1, 256, 4, 2, 64, True, 64, 0), (1, 256, 4, 2, 64, True, None, 32),
+    (1, 256, 4, 2, 64, True, 32, 16), (1, 256, 4, 2, 64, False, None, 0),
+    (1, 200, 4, 2, 64, True, None, 0))
+SSD_PATH = (2, 4096, 64, 64, 1, 64, 256)        # B, L, H, P, G, N, chunk
+SSD_SMALL = ((2, 256, 4, 32, 1, 16, 64), (1, 128, 2, 64, 2, 32, 128),
+             (2, 512, 8, 16, 1, 8, 128), (1, 64, 4, 16, 4, 64, 32),
+             (1, 512, 8, 64, 4, 64, 256), (2, 64, 4, 16, 2, 16, 16))
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SSD_TOL = {"float32": 2e-4, "bfloat16": 5e-2}
+# f32 kernel route vs plain route, x max |logits|: the same f32 math in
+# other summation orders (64-key tiles, a warp scan of cum), amplified over
+# 38 random-weight SSM layers (2.9e-4 of max |logits| measured on an H100);
+# the phase prints beside it the plain route against itself with half the
+# chunk, the model's own f32 rounding floor
+LM_ROUTE_TOL = 1e-3
+DECODE_TOL = 2e-2               # tests/test_models.py:210
+LM_PREFILL = (2, 4096)          # B, S: the train_4k length
+LM_ROUTE = (1, 512)
+LM_DECODE = 256
+PACKED_ROWS = (2048, 4096)
+
+# dense peaks by card (NVIDIA data sheets): f32 FMA FLOP/s, HBM bytes/s,
+# bf16 tensor-core FLOP/s
+PEAKS = (("H100 PCIe", 51.2e12, 2.0e12, 756e12),
+         ("H100 NVL", 60.0e12, 3.9e12, 835e12),
+         ("H100", 66.9e12, 3.35e12, 989e12), ("H200", 66.9e12, 4.8e12, 989e12))
 
 
 def fail(msg: str) -> None:
@@ -85,19 +137,23 @@ def phase_device():
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     name = torch.cuda.get_device_name(0)
-    peak = next(((f, b) for key, f, b in PEAKS if key in name), None)
+    peak = next(((f, b, t) for key, f, b, t in PEAKS if key in name), None)
     if peak is None:
         fail(f"no f32/HBM peak on record for {name!r}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} | {name} | "
           f"{torch.cuda.device_count()} device(s) | peaks f32 "
-          f"{peak[0] / 1e12} TFLOP/s, HBM {peak[1] / 1e12} TB/s", flush=True)
+          f"{peak[0] / 1e12} TFLOP/s, bf16 tensor {peak[2] / 1e12} TFLOP/s, "
+          f"HBM {peak[1] / 1e12} TB/s", flush=True)
     return card, name, peak
 
 
 def phase_build() -> None:
+    from repro_torch.kernels.flash_attention import build as fa_build
     from repro_torch.kernels.fused_qnet import build as fq_build
     from repro_torch.kernels.packed_qnet import build as pq_build
-    builds = [fq_build.nvcc_build(), pq_build.nvcc_build()]  # one per source
+    from repro_torch.kernels.ssd_scan import build as ss_build
+    modules = (fq_build, pq_build, fa_build, ss_build)
+    builds = [m.nvcc_build() for m in modules]           # one per source
     t0 = time.perf_counter()
     for b in builds:
         b.start()
@@ -109,13 +165,13 @@ def phase_build() -> None:
         if b.log.is_file():
             print(f"ptxas {b.source.name}:\n" + "\n".join(
                 "  " + l for l in b.log.read_text().splitlines() if l.strip()))
-    fq_build.load()
-    pq_build.load()
+    for m in modules:
+        m.load()
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     import torch
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
@@ -527,6 +583,393 @@ def phase_train() -> int:
     return launches
 
 
+def _row(name, source, replaces, shape, launches, max_abs, ms, plain_ms,
+         library_ms, flops, nbytes, peak_ops, peak, **extra):
+    """One kernel record: bound = max(bytes / HBM rate, ops / the peak for
+    the inputs' type)."""
+    t_ops, t_bytes = flops / peak_ops, nbytes / peak[1]
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "shape": shape, "launches": launches, "max_abs_err": max_abs,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms, "gflop": flops / 1e9,
+            "mbytes": nbytes / 1e6, **extra}
+
+
+def phase_packed_kernel(peak) -> list[dict]:
+    """``packed_qnet``: the W = 1 launch of the packed kernel."""
+    import torch
+    from repro_torch.core.packed_batch import unpack_bits
+    from repro_torch.kernels.fused_qnet.ops import fused_qnet
+    from repro_torch.kernels.packed_qnet.ops import packed_qnet
+    from repro_torch.kernels.packed_qnet.ref import packed_qnet_ref
+
+    weights = [(w[0].contiguous(), b[0].contiguous()) for w, b in _stacked_weights(1)]
+    n_params = sum(w.numel() + b.numel() for w, b in weights)
+    mac_per_row = sum(w.numel() for w, _ in weights)
+    rows = []
+    for n in PACKED_ROWS:
+        g = torch.Generator(device="cuda").manual_seed(n)
+        rand_u8 = lambda: torch.randint(0, 256, (n, 256), generator=g,
+                                        device="cuda").to(torch.uint8)
+        bits = rand_u8() & rand_u8()
+        frac = torch.randint(0, 11, (n,), generator=g, device="cuda").float() / 10.0
+        qk = packed_qnet(weights, bits, frac)
+        qp = packed_qnet_ref(bits, frac, weights)
+        torch.cuda.synchronize()
+        err = (qk - qp).abs()
+        max_abs = float(err.max())
+        if qk.shape != (n,) or not bool((err <= TOL + TOL * qp.abs()).all()):
+            fail(f"packed_qnet N={n}: shape {tuple(qk.shape)}, max |kernel - "
+                 f"plain| {max_abs:.3e} exceeds {TOL} + {TOL}*|plain|")
+        if not torch.equal(packed_qnet(weights, bits, frac), qk):
+            fail(f"packed_qnet N={n}: two launches on one input differ")
+        x = torch.cat([unpack_bits(bits), frac[:, None]], -1).contiguous()
+        if not torch.equal(fused_qnet(weights, x), qk):
+            fail(f"packed_qnet N={n}: differs from fused_qnet on the densified rows")
+
+        def library():                           # yardstick only
+            h = x
+            for li, (w, b) in enumerate(weights):
+                h = torch.addmm(b, h, w)
+                if li < len(weights) - 1:
+                    h = torch.relu_(h)
+            return h[:, 0]
+
+        rows.append(_row(
+            "packed_qnet", "src/repro_torch/kernels/packed_qnet/csrc/packed_qnet.cu",
+            "src/repro/kernels/packed_qnet/packed_qnet.py:91", [n, 256], 0,
+            max_abs, cuda_ms(lambda: packed_qnet(weights, bits, frac), 20),
+            cuda_ms(lambda: packed_qnet_ref(bits, frac, weights), 20),
+            cuda_ms(library, 20), 2.0 * n * mac_per_row,
+            bits.numel() + 4.0 * (n + n_params + n), peak[0], peak,
+            path="none: no path of the reference runs packed_qnet_rows",
+            fused_qnet_bitwise=True))
+        r = rows[-1]
+        print(f"packed_qnet N={n}: max_abs_err {max_abs:.3e} | rerun and "
+              f"fused_qnet on densified rows bit-identical | kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
+    return rows
+
+
+def _attn_pairs(Sq, Sk, causal, window, prefix) -> int:
+    from repro_torch.models.layers import make_attn_mask
+    return int(make_attn_mask(Sq, Sk, causal=causal, window=window,
+                              prefix_len=prefix).sum())
+
+
+def _ssd_flop(B, L, H, P, N, Q) -> float:
+    """Q x Q products over the causal half, the carry-in and the state
+    update, per (b, h, chunk); elementwise work not counted."""
+    return B * H * (L // Q) * (Q * (Q + 1) * (N + P) + 4.0 * Q * P * N)
+
+
+def _check_close(tag, got, want, tol) -> float:
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype \
+            or not bool(torch.isfinite(got).all()):
+        fail(f"{tag}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} "
+             f"{want.dtype}, or non-finite values")
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if not bool((err <= tol + tol * w.abs()).all()):
+        fail(f"{tag}: max |kernel - plain| {float(err.max()):.3e} exceeds "
+             f"{tol} + {tol}*|plain|")
+    return float(err.max())
+
+
+def _flash_case(B, S, H, K, D, dtype, seed):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(B, S, n, D, generator=g, device="cuda").to(dtype)
+               for n in (H, K, K))
+    return q, k, v
+
+
+def _ssd_case(B, L, H, P, G, N, dtype, seed):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(B, L, H, P, generator=g, device="cuda") * 0.5).to(dtype)
+    dt = torch.randn(B, L, H, generator=g, device="cuda").abs() * 0.1 + 0.01
+    A = torch.randn(H, generator=g, device="cuda").abs() + 0.5
+    Bm = (torch.randn(B, L, G, N, generator=g, device="cuda") * 0.3).to(dtype)
+    Cm = (torch.randn(B, L, G, N, generator=g, device="cuda") * 0.3).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+def phase_lm_kernels(peak) -> tuple[list[dict], dict]:
+    """``flash_attention`` and ``ssd_scan`` against their plain versions.
+    Returns the records and the bf16 path-shape kernel times."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    from repro_torch.models.ssm import ssd_chunked
+
+    def plain_attn(q, k, v, **mk):
+        return attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), **mk).transpose(1, 2)
+
+    rows, path_ms = [], {}
+    for i, (B, S, H, K, D, causal, window, prefix) in enumerate(FLASH_SMALL):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            mk = dict(causal=causal, window=window, prefix_len=prefix)
+            q, k, v = _flash_case(B, S, H, K, D, dtype, i)
+            o = flash_attention(q, k, v, **mk)
+            err = _check_close(f"flash_attention {B}x{S} H{H} K{K} D{D} {mk} "
+                               f"{name}", o, plain_attn(q, k, v, **mk),
+                               FLASH_TOL[name])
+            if not torch.equal(flash_attention(q, k, v, **mk), o):
+                fail(f"flash_attention {B}x{S} H{H} K{K} D{D} {mk}: two "
+                     f"launches differ")
+            print(f"flash_attention B={B} S={S} H={H} K={K} D={D} causal="
+                  f"{causal} window={window} prefix={prefix} {name}: max_abs_err "
+                  f"{err:.3e}, rerun bit-identical", flush=True)
+
+    B, S, H, K, D = FLASH_PATH
+    pairs = B * H * _attn_pairs(S, S, True, None, 0)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        q, k, v = _flash_case(B, S, H, K, D, dtype, 100)
+        o = flash_attention(q, k, v, causal=True)
+        err = _check_close(f"flash_attention path {name}", o,
+                           plain_attn(q, k, v, causal=True), FLASH_TOL[name])
+        if not torch.equal(flash_attention(q, k, v, causal=True), o):
+            fail(f"flash_attention path {name}: two launches differ")
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        lib_err = float((lib.transpose(1, 2).float() - o.float()).abs().max())
+        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), 10)
+        path_ms[("flash_attention", name)] = ms
+        esize = q.element_size()
+        rows.append(_row(
+            "flash_attention", "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:99",
+            [B, S, H, K, D], None, err, ms,
+            cuda_ms(lambda: plain_attn(q, k, v, causal=True), 3, warmup=1),
+            cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 10),
+            4.0 * D * pairs, esize * (2 * B * S * H * D + 2 * B * S * K * D),
+            peak[2] if dtype == torch.bfloat16 else peak[0], peak, dtype=name,
+            bound_f32_ffma_ms=4.0 * D * pairs / peak[0] * 1e3,
+            library_vs_kernel_max_abs=lib_err))
+        r = rows[-1]
+        print(f"flash_attention path B={B} S={S} H={H} K={K} D={D} causal {name}: "
+              f"max_abs_err {err:.3e} (SDPA vs kernel {lib_err:.3e}) | kernel "
+              f"{ms:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), f32 FFMA bound {r['bound_f32_ffma_ms']:.4f} ms",
+              flush=True)
+        del q, k, v, qt, kt, vt, o, lib
+
+    for i, (B, L, H, P, G, N, Q) in enumerate(SSD_SMALL):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            x, dt, A, Bm, Cm = _ssd_case(B, L, H, P, G, N, dtype, 200 + i)
+            y, st = ssd_scan(x, dt, A, Bm, Cm, chunk=Q)
+            yr, sr = ssd_ref(x, dt, A, Bm, Cm)
+            tag = f"ssd_scan B={B} L={L} H={H} P={P} G={G} N={N} chunk={Q} {name}"
+            err = max(_check_close(tag + " y", y, yr, SSD_TOL[name]),
+                      _check_close(tag + " state", st, sr, SSD_TOL[name]))
+            y2, st2 = ssd_scan(x, dt, A, Bm, Cm, chunk=Q)
+            if not (torch.equal(y2, y) and torch.equal(st2, st)):
+                fail(f"{tag}: two launches differ")
+            print(f"{tag}: max_abs_err {err:.3e}, rerun bit-identical", flush=True)
+
+    B, L, H, P, G, N, Q = SSD_PATH
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        x, dt, A, Bm, Cm = _ssd_case(B, L, H, P, G, N, dtype, 300)
+        y, st = ssd_scan(x, dt, A, Bm, Cm, chunk=Q)
+        yr, sr = ssd_ref(x, dt, A, Bm, Cm)
+        tag = f"ssd_scan path {name}"
+        err = max(_check_close(tag + " y", y, yr, SSD_TOL[name]),
+                  _check_close(tag + " state", st, sr, SSD_TOL[name]))
+        yc, sc = ssd_chunked(x, dt, A, Bm, Cm, chunk=Q)
+        err_c = max(_check_close(tag + " y vs ssd_chunked", y, yc, SSD_TOL[name]),
+                    _check_close(tag + " state vs ssd_chunked", st, sc,
+                                 SSD_TOL[name]))
+        y2, st2 = ssd_scan(x, dt, A, Bm, Cm, chunk=Q)
+        if not (torch.equal(y2, y) and torch.equal(st2, st)):
+            fail(f"{tag}: two launches differ")
+        ms = cuda_ms(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=Q), 5)
+        path_ms[("ssd_scan", name)] = ms
+        es = x.element_size()
+        nbytes = es * (2 * x.numel() + Bm.numel() + Cm.numel() + st.numel()) \
+            + 4 * (dt.numel() + A.numel())
+        flops = _ssd_flop(B, L, H, P, N, Q)
+        rows.append(_row(
+            "ssd_scan", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+            "src/repro/kernels/ssd_scan/ssd_scan.py:86", [B, L, H, P, G, N, Q],
+            None, err, ms, cuda_ms(lambda: ssd_ref(x, dt, A, Bm, Cm), 1, warmup=1),
+            None, flops, nbytes, peak[2] if dtype == torch.bfloat16 else peak[0],
+            peak, dtype=name, bound_f32_ffma_ms=flops / peak[0] * 1e3,
+            ssd_chunked_max_abs=err_c,
+            ssd_chunked_ms=cuda_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm, chunk=Q), 3,
+                                   warmup=1)))
+        r = rows[-1]
+        print(f"ssd_scan path B={B} L={L} H={H} P={P} G={G} N={N} chunk={Q} "
+              f"{name}: max_abs_err {err:.3e} vs ssd_ref, {err_c:.3e} vs "
+              f"ssd_chunked | kernel {ms:.4f} ms, plain (ssd_ref) "
+              f"{r['plain_ms']:.4f} ms, ssd_chunked {r['ssd_chunked_ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), f32 FFMA "
+              f"bound {r['bound_f32_ffma_ms']:.4f} ms", flush=True)
+        del x, dt, A, Bm, Cm, y, yr, yc, st
+    torch.cuda.empty_cache()
+    return rows, path_ms
+
+
+def _profile_top(fn, top: int = 12) -> None:
+    """Device time by kernel over one call of ``fn``, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    total_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
+    print(f"lm: torch.profiler over one prefill: {total_us / 1e3:.2f} ms of "
+          f"device kernel time in {len(events)} kernel names", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  "
+              f"{e.key[:100]}", flush=True)
+
+
+def phase_lm(path_ms) -> dict:
+    """zamba2-1.2b at full width: route parity, decode parity, the timed
+    bf16 prefill and the launcher.  Returns the kernels' launch counts."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import (count_params, forward_train, init_cache,
+                                    init_params)
+    from repro_torch.models.model import hybrid_n_apps
+
+    cfg = get_config(LM_ARCH)
+    n_apps, n_ssm = hybrid_n_apps(cfg), cfg.n_layers
+    rng = np.random.default_rng(0)
+    f32 = replace(cfg, dtype="float32")
+    t0 = time.perf_counter()
+    params = init_params(f32, 0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"lm: {LM_ARCH} {count_params(cfg):,} parameters, f32 init on the "
+          f"card in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # 1. kernel route vs plain route, f32
+    B, S = LM_ROUTE
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (B, S))).cuda()
+    lk, _ = forward_train(params, replace(f32, use_pallas=True), {"tokens": tokens})
+    lp, _ = forward_train(params, f32, {"tokens": tokens})
+    # the model's own f32 rounding floor: the plain route against itself
+    # with the SSD in 128-chunks (the same math, other roundings)
+    half = replace(f32, ssm=replace(f32.ssm, chunk=f32.ssm.chunk // 2))
+    lc, _ = forward_train(params, half, {"tokens": tokens})
+    scale = float(lp.abs().max())
+    route_err = float((lk - lp).abs().max())
+    floor = float((lc - lp).abs().max())
+    print(f"lm: f32 kernel route vs plain route at B={B} S={S}: max abs "
+          f"{route_err:.3e} on logits of max |.| {scale:.3f} "
+          f"({route_err / scale:.3e} of it); plain route with "
+          f"{half.ssm.chunk}-chunks vs {f32.ssm.chunk}-chunks: {floor:.3e} "
+          f"({floor / scale:.3e})", flush=True)
+    if not bool(torch.isfinite(lk).all()) or route_err > LM_ROUTE_TOL * scale:
+        fail(f"lm: kernel route differs from the plain route by "
+             f"{route_err:.3e} > {LM_ROUTE_TOL} x {scale:.3f}")
+    del lk, lp, lc
+
+    # 2. decode vs forward, f32
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (1, LM_DECODE))).cuda()
+    full, _ = forward_train(params, replace(f32, use_pallas=True), {"tokens": tokens})
+    step = make_serve_step(f32)
+    cache = init_cache(f32, 1, LM_DECODE, device="cuda")
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(LM_DECODE):
+        lg, cache = step(params, cache, tokens[:, t:t + 1])
+        outs.append(lg[:, 0])
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    dec = torch.stack(outs, dim=1)
+    dec_err = float((dec - full).abs().max())
+    if not bool(((dec - full).abs() <= DECODE_TOL + DECODE_TOL * full.abs()).all()):
+        fail(f"lm: decode differs from forward by {dec_err:.3e} (> {DECODE_TOL} "
+             f"abs + rel)")
+    print(f"lm: {LM_DECODE} f32 decode steps vs the kernel-route forward: max "
+          f"abs {dec_err:.3e} (within {DECODE_TOL}); {LM_DECODE / dec_s:.1f} "
+          f"tok/s at B=1 (host clock)", flush=True)
+    del params, full, dec, outs, cache
+    torch.cuda.empty_cache()
+
+    # 3. the timed bf16 prefill through the kernels
+    kcfg = replace(cfg, use_pallas=True)
+    params = init_params(kcfg, 0, device="cuda")
+    B, S = LM_PREFILL
+    batch = {"tokens": torch.from_numpy(rng.integers(1, cfg.vocab, (B, S))).cuda()}
+    prefill = make_prefill_step(kcfg)
+    flash_attention.launches = ssd_scan.launches = 0
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": flash_attention.launches,
+                "ssd_scan": ssd_scan.launches}
+    if launches != {"flash_attention": n_apps, "ssd_scan": n_ssm}:
+        fail(f"lm: one forward made {launches} launches, want {n_apps} "
+             f"flash_attention and {n_ssm} ssd_scan")
+    if not bool(torch.isfinite(logits).all()):
+        fail("lm: bf16 prefill logits are not finite")
+    again = prefill(params, batch)
+    if not torch.equal(again, logits):
+        fail("lm: bf16 prefill rerun is not bit-identical")
+    del again
+    fwd_ms = cuda_ms(lambda: prefill(params, batch), 3, warmup=1)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = min(walls)
+    fa_share = n_apps * path_ms[("flash_attention", "bfloat16")] / fwd_ms
+    ss_share = n_ssm * path_ms[("ssd_scan", "bfloat16")] / fwd_ms
+    print(f"lm: bf16 prefill B={B} S={S} ({LM_ARCH}, use_pallas): "
+          f"{fwd_ms:.2f} ms per forward (CUDA events) = "
+          f"{B * S / fwd_ms * 1e3:.0f} tokens/s; host clock {wall * 1e3:.2f} ms "
+          f"= {B * S / wall:.0f} tokens/s | per forward {launches['flash_attention']}"
+          f" flash_attention x {path_ms[('flash_attention', 'bfloat16')]:.3f} ms "
+          f"= {100 * fa_share:.1f}%, {launches['ssd_scan']} ssd_scan x "
+          f"{path_ms[('ssd_scan', 'bfloat16')]:.3f} ms = {100 * ss_share:.1f}%, "
+          f"the rest {100 * (1 - fa_share - ss_share):.1f}% | rerun "
+          f"bit-identical, logits finite, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    _profile_top(lambda: prefill(params, batch))
+    del params, logits
+    torch.cuda.empty_cache()
+
+    # 4. the launcher at its defaults
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"],
+                         env=env, cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    if res.returncode != 0:
+        fail(f"lm: python -m repro_torch.launch.serve exited {res.returncode}:\n"
+             f"{res.stderr[-2000:]}")
+    print("lm: launcher: " + " | ".join(res.stdout.strip().splitlines()), flush=True)
+    return launches
+
+
 def main() -> None:
     sys.path.insert(0, str(SRC))
     t0 = time.perf_counter()
@@ -544,6 +987,12 @@ def main() -> None:
     for r in stacked_rows:
         r["launches"] = launches
     rows += stacked_rows
+    rows += phase_packed_kernel(peak)
+    lm_rows, path_ms = phase_lm_kernels(peak)
+    launches = phase_lm(path_ms)
+    for r in lm_rows:
+        r["launches"] = launches[r["name"]]
+    rows += lm_rows
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s on {card}", flush=True)
     print(json.dumps({"card": card, "kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

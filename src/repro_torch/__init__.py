@@ -10,5 +10,8 @@ through hand-written kernels under ``kernels/``.
 Entry points take ``device=``; ``None`` means the GPU (``device.py``).
 Ported so far: the molecule-optimization serving path
 (``launch/serve_molopt.py`` -> ``serving/service.py`` ->
-``kernels/fused_qnet``).
+``kernels/fused_qnet``), the trainer (``core/distributed.py`` ->
+``kernels/packed_qnet``), and the LM zoo's prefill and decode
+(``launch/steps.py``, ``launch/serve.py`` -> ``models/`` ->
+``kernels/flash_attention``, ``kernels/ssd_scan``).
 """

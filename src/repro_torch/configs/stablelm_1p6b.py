@@ -1,0 +1,22 @@
+"""Copy of ``repro.configs.stablelm_1p6b``; only its imports differ.
+
+stablelm-1.6b [dense] — 24L d_model=2048 32H (GQA kv=32) d_ff=5632
+vocab=100352.  [hf:stabilityai/stablelm-2-1_6b]"""
+
+from repro_torch.configs.base import ArchConfig, register
+
+
+@register("stablelm-1.6b")
+def config() -> ArchConfig:
+    return ArchConfig(
+        name="stablelm-1.6b",
+        family="dense",
+        n_layers=24,
+        d_model=2048,
+        n_heads=32,
+        n_kv_heads=32,
+        d_ff=5632,
+        vocab=100352,
+        rope_theta=1e4,
+        source="hf:stabilityai/stablelm-2-1_6b",
+    )

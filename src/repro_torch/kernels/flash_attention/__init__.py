@@ -1,0 +1,5 @@
+"""Hopper counterpart of ``repro.kernels.flash_attention``."""
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+
+__all__ = ["flash_attention"]

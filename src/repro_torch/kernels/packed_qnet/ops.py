@@ -1,13 +1,15 @@
-"""``packed_qnet_stacked``: the fleet's per-worker Q-network over candidate rows.
+"""``packed_qnet_stacked``: the fleet's per-worker Q-network over candidate
+rows; ``packed_qnet``: the same over packed rows under one parameter set.
 
-On CUDA tensors both wrappers launch the hand-written kernel
+On CUDA tensors the wrappers launch the hand-written kernel
 (``csrc/packed_qnet.cu``) on the current stream, or raise; on CPU tensors
 they run the plain version (``ref.py``).  ``packed_qnet_stacked`` reads
 packed fingerprint planes, ``dense_qnet_stacked`` dense f32 rows; both are
-one launch of the same tiles and give the same bits on the same rows.  A
-ragged C needs no padding: the kernel masks it.  Each wrapper counts its
-kernel launches (``packed_qnet_stacked.launches``), so a run can show that
-its Q dispatches went through the kernel.
+one launch of the same tiles and give the same bits on the same rows.
+``packed_qnet`` is the packed launch with W = 1.  A ragged C needs no
+padding: the kernel masks it.  Each wrapper counts its kernel launches
+(``packed_qnet_stacked.launches``), so a run can show that its Q
+dispatches went through the kernel.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ from typing import Sequence
 import torch
 
 from repro_torch.kernels.packed_qnet import build
-from repro_torch.kernels.packed_qnet.ref import (packed_qnet_stacked_ref,
+from repro_torch.kernels.packed_qnet.ref import (packed_qnet_ref,
+                                                 packed_qnet_stacked_ref,
                                                  stacked_qnet_ref)
 
 N_LAYERS = 5
@@ -104,6 +107,27 @@ def packed_qnet_stacked(weights: Weights, bits: torch.Tensor,
     return q
 
 
+def packed_qnet(weights: Weights, bits: torch.Tensor,
+                frac: torch.Tensor) -> torch.Tensor:
+    """weights ``[(w [in, out], b [out])] x 5`` (one parameter set), bits u8
+    ``[N, n_bytes]`` (MSB-first planes), frac f32 ``[N]`` -> q ``[N]``: the
+    packed kernel launched with one worker."""
+    if _device(bits) == "cpu":
+        return packed_qnet_ref(bits, frac, weights)
+    _check_rows(bits, "bits", torch.uint8, 2)
+    _check_rows(frac, "frac", torch.float32, 1)
+    n, n_bytes = bits.shape
+    if tuple(frac.shape) != (n,) or frac.device != bits.device:
+        raise ValueError(f"frac {tuple(frac.shape)} on {frac.device} does not "
+                         f"match bits {tuple(bits.shape)} on {bits.device}")
+    stacked = [(w.unsqueeze(0), b.unsqueeze(0)) for w, b in weights]
+    _check_weights(stacked, 1, 8 * n_bytes + 1, bits.device)
+    q = _launch("packed_qnet_stacked_forward", [bits.data_ptr(), frac.data_ptr()],
+                stacked, 1, n, n_bytes, bits.device)
+    packed_qnet.launches += 1
+    return q[0]
+
+
 def dense_qnet_stacked(weights: Weights, x: torch.Tensor) -> torch.Tensor:
     """weights as above, x f32 ``[W, C, in]`` -> q ``[W, C]``: the same
     kernel with its dense row loader."""
@@ -120,4 +144,5 @@ def dense_qnet_stacked(weights: Weights, x: torch.Tensor) -> torch.Tensor:
 
 
 packed_qnet_stacked.launches = 0
+packed_qnet.launches = 0
 dense_qnet_stacked.launches = 0

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of ``packed_qnet_stacked``: unpack, then the
-dense stacked MLP.
+"""Plain PyTorch versions of ``packed_qnet_stacked`` and ``packed_qnet``:
+unpack, then the dense stacked MLP.
 
 What the wrappers run for CPU tensors, and what the kernel is held against
 on the card.  ``pack_w1`` is the reference's bit-plane weight layout; the
@@ -35,6 +35,16 @@ def packed_qnet_stacked_ref(bits: torch.Tensor, frac: torch.Tensor,
     x = torch.cat([unpack_bits(bits), frac.unsqueeze(-1).to(torch.float32)],
                   dim=-1)
     return stacked_qnet_ref(x, weights)
+
+
+def packed_qnet_ref(bits: torch.Tensor, frac: torch.Tensor,
+                    weights: Sequence[tuple[torch.Tensor, torch.Tensor]]
+                    ) -> torch.Tensor:
+    """One parameter set: bits u8 [N, FP_BITS/8], frac f32 [N], weights
+    [(w [in, out], b [out])] -> q f32 [N]."""
+    stacked = [(w.unsqueeze(0), b.unsqueeze(0)) for w, b in weights]
+    return packed_qnet_stacked_ref(bits.unsqueeze(0), frac.unsqueeze(0),
+                                   stacked)[0]
 
 
 def pack_w1(w1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

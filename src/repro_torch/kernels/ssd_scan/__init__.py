@@ -1,0 +1,5 @@
+"""Hopper counterpart of ``repro.kernels.ssd_scan``."""
+
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+__all__ = ["ssd_scan"]

@@ -1,0 +1,409 @@
+"""Port of ``repro.models.model``: model assembly for the dense, ssm and
+hybrid families, forward and one-token decode.
+
+Families here: dense (stablelm), ssm (mamba2), hybrid (zamba2: mamba2
+blocks + one shared attention block applied every ``shared_attn_every``
+layers).  The moe, encdec and vlm families raise ``NotImplementedError``
+until they are ported (ROADMAP A7); the qnet family lives in
+``repro_torch.core``.
+
+Parameters are the reference's tree: nested dicts, per-layer leaves
+stacked on a leading ``[L, ...]`` axis, each leaf in its own type (the SSM's
+``A_log``, ``D_skip`` and ``dt_bias`` stay f32 in a bf16 tree).
+``params_from_numpy`` / ``params_to_numpy`` carry a reference tree across
+(``jax.tree_util.tree_map(np.asarray, params)``) bit for bit.  The forward
+walks the layers in a Python loop over views of the stacked leaves; with
+``cfg.use_pallas`` attention and the SSD scan go through the hand-written
+CUDA kernels, exactly where the reference goes through Pallas.  There is no
+sharding: the port runs on one device, so the reference's
+sequence-parallel constraint (``_seq_shard``), ``param_pspecs`` and
+``add_fsdp`` have no counterpart.
+
+Decode (``serve_step``) is plain PyTorch, as the reference's is plain
+JAX.  It writes the new key and value into the KV cache's ring slot and the
+new conv window and SSM state into their stacked cache tensors IN PLACE
+(the reference returns fresh arrays): at long contexts the cache is the
+model's largest tensor, and a copy per token would double it.  The cache's
+``pos`` is a Python int, so the ring slot needs no device sync.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as Lyr
+from repro_torch.models import ssm as Ssm
+
+PyTree = Any
+FAMILIES = ("dense", "ssm", "hybrid")
+
+
+def _require_family(cfg: ArchConfig) -> None:
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"the {cfg.family} family is not ported yet (ROADMAP A7); the port "
+            f"runs {FAMILIES}")
+
+
+# ================================================================== #
+# parameter construction
+# ================================================================== #
+def _ones(lead, n, dtype, device):
+    return torch.ones((*lead, n), dtype=dtype, device=device)
+
+
+def _block_init(gen, cfg: ArchConfig, dtype, *, lead=(), device=None) -> dict:
+    """One transformer block (attn + mlp) param group."""
+    kw = dict(lead=lead, device=device)
+    p = {
+        "norm1": _ones(lead, cfg.d_model, dtype, device),
+        "attn": Lyr.attn_params_init(gen, cfg, dtype, **kw),
+        "norm2": _ones(lead, cfg.d_model, dtype, device),
+    }
+    if cfg.d_ff > 0:
+        p["mlp"] = Lyr.mlp_params_init(gen, cfg.d_model, cfg.d_ff, cfg.act,
+                                       dtype, **kw)
+    return p
+
+
+def _mamba_block_init(gen, cfg: ArchConfig, dtype, *, lead=(), device=None) -> dict:
+    return {
+        "norm1": _ones(lead, cfg.d_model, dtype, device),
+        "ssm": Ssm.ssm_params_init(gen, cfg, dtype, lead=lead, device=device),
+    }
+
+
+def _hybrid_shared_init(gen, cfg: ArchConfig, dtype, *, device=None) -> dict:
+    """Zamba2's shared attention(+MLP) block: ONE copy reused."""
+    return {
+        "norm1": _ones((), cfg.d_model, dtype, device),
+        "attn": Lyr.attn_params_init(gen, cfg, dtype, device=device),
+        "norm2": _ones((), cfg.d_model, dtype, device),
+        "mlp": Lyr.mlp_params_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype,
+                                   device=device),
+    }
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, *,
+                device: str | torch.device | None = None) -> PyTree:
+    """Random parameters in the reference's tree layout and types, drawn on
+    ``device`` (default: the GPU) from a ``torch.Generator`` seeded with
+    ``seed``.  The values differ from ``repro``'s ``init_params`` (another
+    generator); carry a reference tree over with ``params_from_numpy``.
+    ``device="meta"`` builds the shapes and types only."""
+    _require_family(cfg)
+    device = resolve_device(device)
+    gen = None if device.type == "meta" else \
+        torch.Generator(device=device).manual_seed(seed)
+    dtype = cfg.torch_dtype
+    kw = dict(device=device)
+    params: dict = {
+        "embed": Lyr.dense_init(gen, (cfg.vocab, cfg.d_model), dtype, 0.02, **kw),
+        "final_norm": _ones((), cfg.d_model, dtype, device),
+    }
+    if not cfg.tied_embeddings:
+        params["unembed"] = Lyr.dense_init(gen, (cfg.d_model, cfg.vocab), dtype, **kw)
+    lead = (cfg.n_layers,)
+    if cfg.family == "dense":
+        params["blocks"] = _block_init(gen, cfg, dtype, lead=lead, **kw)
+    else:
+        params["blocks"] = _mamba_block_init(gen, cfg, dtype, lead=lead, **kw)
+    if cfg.family == "hybrid":
+        params["shared_attn"] = _hybrid_shared_init(gen, cfg, dtype, **kw)
+    return params
+
+
+def _map(fn, tree: PyTree) -> PyTree:
+    """``fn`` on every leaf of a nested-dict tree, keeping the keys."""
+    return {k: _map(fn, v) for k, v in tree.items()} if isinstance(tree, dict) \
+        else fn(tree)
+
+
+def _leaves(tree: PyTree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def count_params(cfg: ArchConfig) -> int:
+    """Parameter count from a shape-only (``meta``) tree: no allocation."""
+    return sum(math.prod(t.shape) for t in _leaves(init_params(cfg, device="meta")))
+
+
+# ------------------------------------------------------------------ #
+# weight carry-over
+# ------------------------------------------------------------------ #
+def _bf16_numpy_dtype() -> np.dtype:
+    try:
+        return np.dtype("bfloat16")
+    except TypeError as e:          # numpy knows bfloat16 only once ml_dtypes is loaded
+        raise TypeError("numpy has no bfloat16 type registered here; import "
+                        "ml_dtypes (as JAX does) to exchange bf16 leaves") from e
+
+
+def params_from_numpy(tree: PyTree, *,
+                      device: str | torch.device | None = None) -> PyTree:
+    """The reference's parameter tree (numpy arrays, e.g.
+    ``jax.tree_util.tree_map(np.asarray, params)``) as tensors on ``device``
+    (default: the GPU): the same key paths, stacked layouts and per-leaf
+    types, bit for bit.  bf16 leaves (``ml_dtypes.bfloat16`` arrays, which
+    ``torch.from_numpy`` refuses) cross as their uint16 bits."""
+    device = resolve_device(device)
+
+    def leaf(a) -> torch.Tensor:
+        a = np.ascontiguousarray(a)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a.copy())
+        return t.to(device)
+
+    return _map(leaf, tree)
+
+
+def params_to_numpy(params: PyTree) -> PyTree:
+    """The inverse of ``params_from_numpy``: numpy arrays in the reference's
+    types (bf16 as ``np.dtype("bfloat16")``, which needs ml_dtypes loaded)."""
+    def leaf(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(_bf16_numpy_dtype())
+        return t.numpy()
+
+    return _map(leaf, params)
+
+
+def _layer(tree: PyTree, i: int) -> PyTree:
+    """Layer ``i`` of a stacked tree (views, no copy)."""
+    return _map(lambda t: t[i], tree)
+
+
+# ================================================================== #
+# forward passes
+# ================================================================== #
+def _dense_block_fwd(cfg: ArchConfig, p: dict, h: torch.Tensor,
+                     positions) -> torch.Tensor:
+    x = Lyr.rms_norm(h, p["norm1"], cfg.norm_eps)
+    h = h + Lyr.attn_forward(p["attn"], x, positions, theta=cfg.rope_theta,
+                             window=cfg.attn_window, use_pallas=cfg.use_pallas)
+    x = Lyr.rms_norm(h, p["norm2"], cfg.norm_eps)
+    if "mlp" in p:
+        h = h + Lyr.mlp_forward(p["mlp"], x, cfg.act)
+    return h
+
+
+def _mamba_block_fwd(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
+    x = Lyr.rms_norm(h, p["norm1"], cfg.norm_eps)
+    return h + Ssm.ssm_forward(p["ssm"], x, cfg, use_pallas=cfg.use_pallas)
+
+
+def _shared_attn_fwd(cfg: ArchConfig, p: dict, h: torch.Tensor, positions) -> torch.Tensor:
+    x = Lyr.rms_norm(h, p["norm1"], cfg.norm_eps)
+    h = h + Lyr.attn_forward(p["attn"], x, positions, theta=cfg.rope_theta,
+                             window=cfg.attn_window, use_pallas=cfg.use_pallas)
+    x = Lyr.rms_norm(h, p["norm2"], cfg.norm_eps)
+    return h + Lyr.mlp_forward(p["mlp"], x, cfg.act)
+
+
+def forward_train(params: PyTree, cfg: ArchConfig,
+                  batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits [B,S,V], aux_loss scalar)."""
+    h, aux = forward_hidden(params, cfg, batch)
+    return _unembed(params, cfg, h), aux
+
+
+def forward_hidden(params: PyTree, cfg: ArchConfig,
+                   batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """Final-norm hidden states [B,S,D].  ``batch["tokens"]`` is a [B, S]
+    int tensor or array; it is moved to the parameters' device."""
+    _require_family(cfg)
+    embed = params["embed"]
+    tokens = torch.as_tensor(batch["tokens"], device=embed.device).long()
+    B, S = tokens.shape
+    h = embed[tokens]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=embed.device)[None].expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=embed.device)
+
+    if cfg.family == "dense":
+        for i in range(cfg.n_layers):
+            h = _dense_block_fwd(cfg, _layer(params["blocks"], i), h, positions)
+    elif cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            h = _mamba_block_fwd(cfg, _layer(params["blocks"], i), h)
+    else:   # hybrid: k mamba layers, then the shared attention block
+        for lo, hi, with_attn in _hybrid_segments(cfg):
+            for i in range(lo, hi):
+                h = _mamba_block_fwd(cfg, _layer(params["blocks"], i), h)
+            if with_attn:
+                h = _shared_attn_fwd(cfg, params["shared_attn"], h, positions)
+
+    h = Lyr.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return h, aux
+
+
+def _hybrid_segments(cfg: ArchConfig) -> list[tuple[int, int, bool]]:
+    """(layer_lo, layer_hi, apply_shared_attn) segments: the shared block
+    runs after layers k-1, 2k-1, ... (matching the original cond-in-scan
+    schedule)."""
+    k = cfg.shared_attn_every
+    out = []
+    lo = 0
+    while lo < cfg.n_layers:
+        hi = min(lo + k, cfg.n_layers)
+        out.append((lo, hi, hi - lo == k))
+        lo = hi
+    return out
+
+
+def hybrid_n_apps(cfg: ArchConfig) -> int:
+    return sum(1 for _, _, a in _hybrid_segments(cfg) if a)
+
+
+def _unembed(params, cfg, h):
+    if cfg.tied_embeddings:
+        return h @ params["embed"].T
+    return h @ params["unembed"]
+
+
+# ================================================================== #
+# decode (serve_step)
+# ================================================================== #
+def cache_len(cfg: ArchConfig, seq_len: int) -> int:
+    """Ring-buffer length: the window for SWA archs, else the full seq."""
+    if cfg.attn_window is not None and cfg.attn_window < seq_len:
+        return cfg.attn_window
+    return seq_len
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
+               device: str | torch.device | None = None) -> PyTree:
+    """Zero cache on ``device`` (default: the GPU), in the config's type;
+    ``pos`` is a Python int."""
+    _require_family(cfg)
+    device = resolve_device(device)
+    dtype = cfg.torch_dtype
+    L, K, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    Sc = cache_len(cfg, seq_len)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if cfg.family == "dense":
+        return {"k": zeros(L, batch, Sc, K, Dh), "v": zeros(L, batch, Sc, K, Dh),
+                "pos": 0}
+    d = Ssm.ssm_dims(cfg)
+    cache = {
+        "conv": zeros(L, batch, cfg.ssm.conv_width - 1, d["conv_dim"]),
+        "state": zeros(L, batch, d["n_heads"], cfg.ssm.head_dim, cfg.ssm.state_dim),
+    }
+    if cfg.family == "hybrid":
+        # ONE KV cache per shared-block application: weights are shared,
+        # the attended activations are not
+        napps = hybrid_n_apps(cfg)
+        cache["shared_k"] = zeros(napps, batch, Sc, K, Dh)
+        cache["shared_v"] = zeros(napps, batch, Sc, K, Dh)
+    cache["pos"] = 0
+    return cache
+
+
+def _decode_attn(cfg, p, x, pos: int, ck, cv, Sc: int, *, prefix_len: int = 0):
+    """One-token attention against a (ring) cache.
+
+    x [B,1,D]; ck/cv [B,Sc(+prefix),K,Dh], written in place at the ring
+    slot; pos the absolute position.  Keys are stored ALREADY rotated.
+    Returns out [B,1,D]."""
+    B = x.shape[0]
+    q = Lyr._proj(x, p["wq"])
+    k_new = Lyr._proj(x, p["wk"])
+    v_new = Lyr._proj(x, p["wv"])
+    posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q = Lyr.apply_rope(q, posv, cfg.rope_theta)
+    k_new = Lyr.apply_rope(k_new, posv, cfg.rope_theta)
+
+    slot = prefix_len + (pos % Sc)
+    ck[:, slot] = k_new[:, 0]
+    cv[:, slot] = v_new[:, 0]
+
+    # a ring slot is valid iff it holds a real position: 0 <= abs <= pos
+    # (and inside the window); prefix slots are always valid
+    s_idx = torch.arange(ck.shape[1], device=x.device)
+    ring = s_idx >= prefix_len
+    abs_pos = torch.where(ring, _ring_abs_pos(s_idx - prefix_len, pos, Sc),
+                          torch.zeros_like(s_idx))
+    valid = torch.where(ring, (abs_pos <= pos) & (abs_pos >= 0),
+                        torch.ones_like(ring))
+    if cfg.attn_window is not None:
+        valid = valid & torch.where(ring, abs_pos > pos - cfg.attn_window,
+                                    torch.ones_like(ring))
+    mask = valid[None, None, :].expand(B, 1, ck.shape[1])
+    out = Lyr.gqa_attention(q, ck, cv, mask)
+    wo = p["wo"]
+    return out.reshape(B, 1, -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def _ring_abs_pos(slot: torch.Tensor, pos: int, Sc: int) -> torch.Tensor:
+    """Absolute position stored in ring slot ``slot`` after writing ``pos``."""
+    cur_slot = pos % Sc
+    base = pos - cur_slot
+    return torch.where(slot <= cur_slot, base + slot, base - Sc + slot)
+
+
+def serve_step(params: PyTree, cfg: ArchConfig, cache: PyTree,
+               tokens) -> tuple[torch.Tensor, PyTree]:
+    """Decode ONE token: tokens [B,1] -> (logits [B,1,V], cache).  The
+    cache's tensors are updated in place; the returned dict shares them and
+    has ``pos`` advanced by one."""
+    _require_family(cfg)
+    pos = int(cache["pos"])
+    embed = params["embed"]
+    tokens = torch.as_tensor(tokens, device=embed.device).long()
+    h = embed[tokens]
+
+    def mamba(i, h):
+        x = Lyr.rms_norm(h, params["blocks"]["norm1"][i], cfg.norm_eps)
+        y, conv, state = Ssm.ssm_decode_step(
+            _layer(params["blocks"]["ssm"], i), x, cfg, cache["conv"][i],
+            cache["state"][i])
+        cache["conv"][i] = conv
+        cache["state"][i] = state
+        return h + y
+
+    if cfg.family == "dense":
+        Sc = cache["k"].shape[2]
+        for i in range(cfg.n_layers):
+            lp = _layer(params["blocks"], i)
+            x = Lyr.rms_norm(h, lp["norm1"], cfg.norm_eps)
+            h = h + _decode_attn(cfg, lp["attn"], x, pos, cache["k"][i],
+                                 cache["v"][i], Sc)
+            x = Lyr.rms_norm(h, lp["norm2"], cfg.norm_eps)
+            h = h + Lyr.mlp_forward(lp["mlp"], x, cfg.act)
+    elif cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            h = mamba(i, h)
+    else:   # hybrid: per-application shared KV caches
+        shared = params["shared_attn"]
+        app = 0
+        for lo, hi, with_attn in _hybrid_segments(cfg):
+            for i in range(lo, hi):
+                h = mamba(i, h)
+            if with_attn:
+                x = Lyr.rms_norm(h, shared["norm1"], cfg.norm_eps)
+                h = h + _decode_attn(cfg, shared["attn"], x, pos,
+                                     cache["shared_k"][app],
+                                     cache["shared_v"][app],
+                                     cache["shared_k"].shape[2])
+                x = Lyr.rms_norm(h, shared["norm2"], cfg.norm_eps)
+                h = h + Lyr.mlp_forward(shared["mlp"], x, cfg.act)
+                app += 1
+
+    h = Lyr.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return _unembed(params, cfg, h), {**cache, "pos": pos + 1}

@@ -54,6 +54,36 @@ def test_port_has_the_training_slice():
         assert (ROOT / rel).is_file()
 
 
+def test_port_has_the_lm_slice():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for rel in ("src/repro_torch/configs/base.py",
+                "src/repro_torch/configs/zamba2_1p2b.py",
+                "src/repro_torch/configs/stablelm_1p6b.py",
+                "src/repro_torch/configs/mamba2_2p7b.py",
+                "src/repro_torch/models/layers.py",
+                "src/repro_torch/models/ssm.py",
+                "src/repro_torch/models/model.py",
+                "src/repro_torch/launch/steps.py",
+                "src/repro_torch/launch/serve.py",
+                "src/repro_torch/kernels/flash_attention/ops.py",
+                "src/repro_torch/kernels/flash_attention/ref.py",
+                "src/repro_torch/kernels/ssd_scan/ops.py",
+                "src/repro_torch/kernels/ssd_scan/ref.py"):
+        assert rel in names
+    for rel in ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"):
+        assert (ROOT / rel).is_file()
+    code = ("import sys, repro_torch.launch.serve, repro_torch.models, "
+            "repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_scan; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
+            "assert not bad, bad; print('clean')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[p.relative_to(ROOT).as_posix() for p in PORT_FILES])
 def test_no_jax_or_repro_import(path):
