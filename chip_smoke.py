@@ -2,6 +2,7 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare OTHER/src   # digests and times of another tree
 
 Phases, each of which exits non-zero on failure:
 
@@ -12,7 +13,9 @@ Phases, each of which exits non-zero on failure:
 3. kernels - hold each kernel against its plain PyTorch version on the
              card, at full width and the shapes its path gives it (within
              1e-4 abs + 1e-4 rel); check that two launches are
-             bit-identical and that a row's Q ignores the other rows; for
+             bit-identical, that a row's Q ignores the other rows, and that
+             a prefix of the rows run alone (another tile) gives the same
+             bits; for
              ``packed_qnet_stacked`` also that dead workers' zero planes
              evaluate like zero input without touching live workers, that
              its packed and dense loaders agree bit for bit, and that each
@@ -38,9 +41,12 @@ Phases, each of which exits non-zero on failure:
 6. lm_kernels - ``flash_attention`` and ``ssd_scan`` against their plain
              versions (``attention_ref``; ``ssd_ref``, the naive recurrence,
              and the model's ``ssd_chunked``) at zamba2-1.2b's prefill
-             shapes in bf16 and f32 and at small mask, GQA/MQA and group
-             shapes, within ``tests/test_kernels.py``'s tolerances; two
-             launches bit-identical; kernel, plain, library
+             shapes in bf16 and f32, at small mask, GQA/MQA and group
+             shapes and at shapes that cut the bf16 kernel's 128 x 64 tiles
+             (ragged Sq != Sk, window and prefix edges), within
+             ``tests/test_kernels.py``'s tolerances; two launches
+             bit-identical; strided bf16 views run and a misaligned one
+             raises; kernel, plain, library
              (``scaled_dot_product_attention`` for causal attention; none
              for the scan) and bound times.  ``packed_qnet`` (the W = 1
              launch of the packed kernel) against its plain version and bit
@@ -61,6 +67,13 @@ Phases, each of which exits non-zero on failure:
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package ``repro``.
+
+``--compare SRC`` runs none of the phases: it builds the kernels of the
+port at SRC and prints one JSON line of sha256 digests of every Q kernel's
+output on the kernels phases' seeded inputs, and the times of the Q kernels
+and of bf16 ``flash_attention`` at the path shape.  Run it on two trees in
+one call (parent, change, change, parent) to hold them to the same bits on
+one card.
 """
 
 from __future__ import annotations
@@ -80,6 +93,8 @@ SERVE_ARGS = ["--slots", "8", "--requests", "32", "--deadline-frac", "0.3",
               "--invalid-every", "8", "--faults"]
 KERNEL_ROWS = (1, 5, 128, 300, 2048, 4096)
 STACKED_SHAPES = ((1, 5), (3, 300), (4, 1024), (128, 32))   # workers x rows
+CROSS_ROWS = (5, 128)           # a prefix of N = 2048 run on its own tile
+CROSS_STACKED = 32              # a prefix of each worker's rows, likewise
 TRAIN_EPISODES = 3
 TRAIN_LOSS_RTOL = 1e-4          # GPU vs CPU losses: cuBLAS vs CPU BLAS sums
 
@@ -93,6 +108,14 @@ FLASH_SMALL = (                                  # B, S, H, K, D, causal, window
     (1, 256, 4, 2, 64, True, 64, 0), (1, 256, 4, 2, 64, True, None, 32),
     (1, 256, 4, 2, 64, True, 32, 16), (1, 256, 4, 2, 64, False, None, 0),
     (1, 200, 4, 2, 64, True, None, 0))
+# bf16 tiles are 128 queries x 64 keys: ragged edges, a window and a prefix
+# that cut tiles, GQA with Sq != Sk
+FLASH_EDGES = (                                  # B, Sq, Sk, H, K, D, causal, window, prefix
+    (1, 320, 320, 4, 2, 64, True, 96, 0), (1, 384, 384, 4, 2, 64, True, None, 130),
+    (2, 200, 264, 8, 2, 64, True, None, 0), (1, 320, 320, 4, 4, 128, True, 96, 0),
+    (1, 264, 200, 2, 1, 32, False, None, 0))
+# the path shape before the bf16 kernel moved to tensor cores (PERF.md §6)
+FFMA_FLASH_MS = {"bfloat16": 5.7809, "float32": 5.8006}
 SSD_PATH = (2, 4096, 64, 64, 1, 64, 256)        # B, L, H, P, G, N, chunk
 SSD_SMALL = ((2, 256, 4, 32, 1, 16, 64), (1, 128, 2, 64, 2, 32, 128),
              (2, 512, 8, 16, 1, 8, 128), (1, 64, 4, 16, 4, 64, 32),
@@ -123,12 +146,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def phase_device():
+def phase_device(src: Path = SRC):
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs an NVIDIA GPU")
-    if not (SRC / "repro_torch").is_dir():
-        fail(f"{SRC / 'repro_torch'} is missing: run from a checkout of the repo")
+    if not (src / "repro_torch").is_dir():
+        fail(f"{src / 'repro_torch'} is missing: run from a checkout of the repo")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
@@ -147,7 +170,7 @@ def phase_device():
     return card, name, peak
 
 
-def phase_build() -> None:
+def phase_build(report: bool = True) -> None:
     from repro_torch.kernels.flash_attention import build as fa_build
     from repro_torch.kernels.fused_qnet import build as fq_build
     from repro_torch.kernels.packed_qnet import build as pq_build
@@ -162,7 +185,7 @@ def phase_build() -> None:
     print(f"build: {len(builds)} kernel source(s) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for b in builds:
-        if b.log.is_file():
+        if report and b.log.is_file():
             print(f"ptxas {b.source.name}:\n" + "\n".join(
                 "  " + l for l in b.log.read_text().splitlines() if l.strip()))
     for m in modules:
@@ -182,12 +205,12 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_kernels(peak) -> list[dict]:
+def _fused_inputs():
+    """phase_kernels' seeded inputs: full-width weights and x [n, 2049] for
+    every n of KERNEL_ROWS, drawn in one numpy stream."""
     import numpy as np
     import torch
     from repro_torch.core.agent import STATE_DIM, QNetwork
-    from repro_torch.kernels.fused_qnet.ops import fused_qnet
-    from repro_torch.kernels.fused_qnet.ref import qnet_ref
 
     rng = np.random.default_rng(0)
     sizes = (STATE_DIM, 1024, 512, 128, 32, 1)
@@ -196,6 +219,20 @@ def phase_kernels(peak) -> list[dict]:
                torch.from_numpy((0.1 * rng.standard_normal(o)).astype(np.float32)))
               for i, o in zip(sizes[:-1], sizes[1:])]
     weights = QNetwork(device="cuda", layers=layers).layers()
+    xs = {}
+    for n in KERNEL_ROWS:
+        bits = (rng.random((n, STATE_DIM - 1)) < 0.2).astype(np.float32)
+        frac = rng.integers(0, 11, (n, 1)).astype(np.float32) / 10.0
+        xs[n] = torch.from_numpy(np.concatenate([bits, frac], 1)).cuda()
+    return weights, xs
+
+
+def phase_kernels(peak) -> list[dict]:
+    import torch
+    from repro_torch.kernels.fused_qnet.ops import fused_qnet
+    from repro_torch.kernels.fused_qnet.ref import qnet_ref
+
+    weights, xs = _fused_inputs()
     n_params = sum(w.numel() + b.numel() for w, b in weights)
     mac_per_row = sum(w.numel() for w, _ in weights)
 
@@ -207,12 +244,10 @@ def phase_kernels(peak) -> list[dict]:
                 h = torch.relu_(h)
         return h[:, 0]
 
-    rows = []
+    rows, qs = [], {}
     for n in KERNEL_ROWS:
-        bits = (rng.random((n, STATE_DIM - 1)) < 0.2).astype(np.float32)
-        frac = rng.integers(0, 11, (n, 1)).astype(np.float32) / 10.0
-        x = torch.from_numpy(np.concatenate([bits, frac], 1)).cuda()
-        qk = fused_qnet(weights, x)
+        x = xs[n]
+        qk = qs[n] = fused_qnet(weights, x)
         qp = qnet_ref(x, weights)
         torch.cuda.synchronize()
         if qk.shape != (n,) or not bool(torch.isfinite(qk).all()):
@@ -251,7 +286,17 @@ def phase_kernels(peak) -> list[dict]:
               f"{rows[-1]['ms']:.4f} ms, plain {rows[-1]['plain_ms']:.4f} ms, "
               f"library {rows[-1]['library_ms']:.4f} ms, bound "
               f"{rows[-1]['bound_ms']:.4f} ms", flush=True)
+    # the tile depends on N (32 x 32 at N = 5 and 128, 128 x 128 for layer 1
+    # at N = 2048); the sums must not
+    full = xs[2048]
+    for n in CROSS_ROWS:
+        if not torch.equal(fused_qnet(weights, full[:n].contiguous()), qs[2048][:n]):
+            fail(f"fused_qnet: the first {n} rows' Q at N={n} differs from the "
+                 f"same rows at N=2048")
+    print(f"fused_qnet: the first {CROSS_ROWS} rows' Q at N = {CROSS_ROWS} "
+          f"bit-identical to the same rows at N = 2048", flush=True)
     return rows
+
 
 def _stacked_weights(n_workers: int):
     """Full-width per-worker weights, distinct for every worker, made on
@@ -266,6 +311,19 @@ def _stacked_weights(n_workers: int):
             for i, o in zip(sizes[:-1], sizes[1:])]
 
 
+def _stacked_inputs(W: int, C: int):
+    """phase_stacked_kernel's seeded inputs: weights, bits u8 [W, C, 256]
+    with ~25% of bits set, frac [W, C]."""
+    import torch
+    weights = _stacked_weights(W)
+    g = torch.Generator(device="cuda").manual_seed(1000 + W)
+    rand_u8 = lambda: torch.randint(0, 256, (W, C, 256), generator=g,
+                                    device="cuda").to(torch.uint8)
+    bits = rand_u8() & rand_u8()
+    frac = torch.randint(0, 11, (W, C), generator=g, device="cuda").float() / 10.0
+    return weights, bits, frac
+
+
 def phase_stacked_kernel(peak) -> list[dict]:
     import torch
     from repro_torch.core.packed_batch import unpack_bits
@@ -277,13 +335,7 @@ def phase_stacked_kernel(peak) -> list[dict]:
     rows = []
     for W, C in STACKED_SHAPES:
         tag = f"packed_qnet_stacked W={W} C={C}"
-        weights = _stacked_weights(W)
-        g = torch.Generator(device="cuda").manual_seed(1000 + W)
-        rand_u8 = lambda: torch.randint(0, 256, (W, C, 256), generator=g,
-                                        device="cuda").to(torch.uint8)
-        bits = rand_u8() & rand_u8()             # ~25% of bits set
-        frac = torch.randint(0, 11, (W, C), generator=g,
-                             device="cuda").float() / 10.0
+        weights, bits, frac = _stacked_inputs(W, C)
         qk = packed_qnet_stacked(weights, bits, frac)
         qp = packed_qnet_stacked_ref(bits, frac, weights)
         torch.cuda.synchronize()
@@ -303,6 +355,13 @@ def phase_stacked_kernel(peak) -> list[dict]:
             if not torch.equal(packed_qnet_stacked(weights, b2, f2)[:, 0::2],
                                qk[:, 0::2]):
                 fail(f"{tag}: a row's Q moved with other rows")
+        if C > CROSS_STACKED:                    # a 32-row tile, not 128
+            c = CROSS_STACKED
+            if not torch.equal(packed_qnet_stacked(
+                    weights, bits[:, :c].contiguous(), frac[:, :c].contiguous()),
+                    qk[:, :c]):
+                fail(f"{tag}: the first {c} rows of each worker at C={c} differ "
+                     f"from the same rows at C={C}")
         x = torch.cat([unpack_bits(bits), frac.unsqueeze(-1)], -1).contiguous()
         if not torch.equal(dense_qnet_stacked(weights, x), qk):
             fail(f"{tag}: the dense loader differs from the packed one")
@@ -596,6 +655,21 @@ def _row(name, source, replaces, shape, launches, max_abs, ms, plain_ms,
             "mbytes": nbytes / 1e6, **extra}
 
 
+def _packed_weights():
+    return [(w[0].contiguous(), b[0].contiguous()) for w, b in _stacked_weights(1)]
+
+
+def _packed_rows(n: int):
+    """phase_packed_kernel's seeded rows: bits u8 [n, 256], frac [n]."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(n)
+    rand_u8 = lambda: torch.randint(0, 256, (n, 256), generator=g,
+                                    device="cuda").to(torch.uint8)
+    bits = rand_u8() & rand_u8()
+    frac = torch.randint(0, 11, (n,), generator=g, device="cuda").float() / 10.0
+    return bits, frac
+
+
 def phase_packed_kernel(peak) -> list[dict]:
     """``packed_qnet``: the W = 1 launch of the packed kernel."""
     import torch
@@ -604,16 +678,12 @@ def phase_packed_kernel(peak) -> list[dict]:
     from repro_torch.kernels.packed_qnet.ops import packed_qnet
     from repro_torch.kernels.packed_qnet.ref import packed_qnet_ref
 
-    weights = [(w[0].contiguous(), b[0].contiguous()) for w, b in _stacked_weights(1)]
+    weights = _packed_weights()
     n_params = sum(w.numel() + b.numel() for w, b in weights)
     mac_per_row = sum(w.numel() for w, _ in weights)
     rows = []
     for n in PACKED_ROWS:
-        g = torch.Generator(device="cuda").manual_seed(n)
-        rand_u8 = lambda: torch.randint(0, 256, (n, 256), generator=g,
-                                        device="cuda").to(torch.uint8)
-        bits = rand_u8() & rand_u8()
-        frac = torch.randint(0, 11, (n,), generator=g, device="cuda").float() / 10.0
+        bits, frac = _packed_rows(n)
         qk = packed_qnet(weights, bits, frac)
         qp = packed_qnet_ref(bits, frac, weights)
         torch.cuda.synchronize()
@@ -680,11 +750,11 @@ def _check_close(tag, got, want, tol) -> float:
     return float(err.max())
 
 
-def _flash_case(B, S, H, K, D, dtype, seed):
+def _flash_case(B, Sq, Sk, H, K, D, dtype, seed):
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (torch.randn(B, S, n, D, generator=g, device="cuda").to(dtype)
-               for n in (H, K, K))
+               for S, n in ((Sq, H), (Sk, K), (Sk, K)))
     return q, k, v
 
 
@@ -715,27 +785,40 @@ def phase_lm_kernels(peak) -> tuple[list[dict], dict]:
                              v.transpose(1, 2), **mk).transpose(1, 2)
 
     rows, path_ms = [], {}
-    for i, (B, S, H, K, D, causal, window, prefix) in enumerate(FLASH_SMALL):
+    cases = [(B, S, S, H, K, D, c, w, p) for B, S, H, K, D, c, w, p in FLASH_SMALL]
+    for i, (B, Sq, Sk, H, K, D, causal, window, prefix) in enumerate(
+            cases + list(FLASH_EDGES)):
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
             mk = dict(causal=causal, window=window, prefix_len=prefix)
-            q, k, v = _flash_case(B, S, H, K, D, dtype, i)
+            q, k, v = _flash_case(B, Sq, Sk, H, K, D, dtype, i)
+            tag = f"flash_attention B={B} Sq={Sq} Sk={Sk} H={H} K={K} D={D} {mk} {name}"
             o = flash_attention(q, k, v, **mk)
-            err = _check_close(f"flash_attention {B}x{S} H{H} K{K} D{D} {mk} "
-                               f"{name}", o, plain_attn(q, k, v, **mk),
-                               FLASH_TOL[name])
+            err = _check_close(tag, o, plain_attn(q, k, v, **mk), FLASH_TOL[name])
             if not torch.equal(flash_attention(q, k, v, **mk), o):
-                fail(f"flash_attention {B}x{S} H{H} K{K} D{D} {mk}: two "
-                     f"launches differ")
-            print(f"flash_attention B={B} S={S} H={H} K={K} D={D} causal="
-                  f"{causal} window={window} prefix={prefix} {name}: max_abs_err "
-                  f"{err:.3e}, rerun bit-identical", flush=True)
+                fail(f"{tag}: two launches differ")
+            print(f"{tag}: max_abs_err {err:.3e}, rerun bit-identical", flush=True)
+
+    # strided bf16 views: 16-byte aligned ones run, misaligned ones raise
+    g = torch.Generator(device="cuda").manual_seed(400)
+    wide = torch.randn(2, 192, 3, 4, 72, generator=g, device="cuda").bfloat16()
+    q, k, v = (wide[:, :, j, :, :64] for j in range(3))    # S stride 864, H 72
+    err = _check_close("flash_attention strided bf16 views", flash_attention(q, k, v),
+                       plain_attn(q, k, v, causal=True), FLASH_TOL["bfloat16"])
+    odd = torch.randn(1, 64, 2, 65, generator=g, device="cuda").bfloat16()[..., 1:]
+    try:
+        flash_attention(odd, odd, odd)
+        fail("flash_attention: a bf16 view 2 bytes off alignment did not raise")
+    except ValueError:
+        pass
+    print(f"flash_attention strided bf16 views: max_abs_err {err:.3e}; a "
+          f"misaligned bf16 view raises ValueError", flush=True)
 
     B, S, H, K, D = FLASH_PATH
     pairs = B * H * _attn_pairs(S, S, True, None, 0)
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
-        q, k, v = _flash_case(B, S, H, K, D, dtype, 100)
+        q, k, v = _flash_case(B, S, S, H, K, D, dtype, 100)
         o = flash_attention(q, k, v, causal=True)
         err = _check_close(f"flash_attention path {name}", o,
                            plain_attn(q, k, v, causal=True), FLASH_TOL[name])
@@ -760,10 +843,10 @@ def phase_lm_kernels(peak) -> tuple[list[dict], dict]:
         r = rows[-1]
         print(f"flash_attention path B={B} S={S} H={H} K={K} D={D} causal {name}: "
               f"max_abs_err {err:.3e} (SDPA vs kernel {lib_err:.3e}) | kernel "
-              f"{ms:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
-              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), f32 FFMA bound {r['bound_f32_ffma_ms']:.4f} ms",
-              flush=True)
+              f"{ms:.4f} ms (all-FFMA kernel: {FFMA_FLASH_MS[name]} ms), plain "
+              f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), f32 FFMA bound "
+              f"{r['bound_f32_ffma_ms']:.4f} ms", flush=True)
         del q, k, v, qt, kt, vt, o, lib
 
     for i, (B, L, H, P, G, N, Q) in enumerate(SSD_SMALL):
@@ -970,7 +1053,63 @@ def phase_lm(path_ms) -> dict:
     return launches
 
 
+def compare(src: Path) -> None:
+    """``--compare SRC``: the port at SRC (the ``src`` of another checkout)
+    on the seeded inputs of the kernels phases.  Prints one JSON line with
+    sha256 digests of every Q kernel's output and the times of the kernels
+    this slice redesigned, so two trees run in one call can be held to the
+    same bits and timed on the same card."""
+    import hashlib
+    sys.path.insert(0, str(src))
+    card, _, _ = phase_device(src)
+    import torch
+    from repro_torch.core.packed_batch import unpack_bits
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.fused_qnet.ops import fused_qnet
+    from repro_torch.kernels.packed_qnet.ops import (dense_qnet_stacked,
+                                                     packed_qnet,
+                                                     packed_qnet_stacked)
+    resolve_device("cuda")
+    phase_build(report=False)
+
+    def digest(t):
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+    bits_of, ms = {}, {}
+    weights, xs = _fused_inputs()
+    for n, x in xs.items():
+        bits_of[f"fused_qnet N={n}"] = digest(fused_qnet(weights, x))
+    ms["fused_qnet N=2048"] = cuda_ms(lambda: fused_qnet(weights, xs[2048]), 20)
+    del weights, xs
+    for W, C in STACKED_SHAPES:
+        weights, bits, frac = _stacked_inputs(W, C)
+        bits_of[f"packed_qnet_stacked {W}x{C}"] = digest(
+            packed_qnet_stacked(weights, bits, frac))
+        x = torch.cat([unpack_bits(bits), frac.unsqueeze(-1)], -1).contiguous()
+        bits_of[f"dense_qnet_stacked {W}x{C}"] = digest(dense_qnet_stacked(weights, x))
+        if W * C >= 2048:
+            ms[f"packed_qnet_stacked {W}x{C}"] = cuda_ms(
+                lambda: packed_qnet_stacked(weights, bits, frac), 20)
+        del weights, bits, frac, x
+    weights = _packed_weights()
+    for n in PACKED_ROWS:
+        bits, frac = _packed_rows(n)
+        bits_of[f"packed_qnet N={n}"] = digest(packed_qnet(weights, bits, frac))
+    B, S, H, K, D = FLASH_PATH
+    q, k, v = _flash_case(B, S, S, H, K, D, torch.bfloat16, 100)
+    ms["flash_attention bf16 path"] = cuda_ms(lambda: flash_attention(q, k, v), 10)
+    print(json.dumps({"src": str(src), "card": card, "digests": bits_of, "ms": ms}),
+          flush=True)
+
+
 def main() -> None:
+    args = sys.argv[1:]
+    if args[:1] == ["--compare"] and len(args) == 2:
+        compare(Path(args[1]).resolve())
+        return
+    if args:
+        fail(f"usage: {sys.argv[0]} [--compare SRC]")
     sys.path.insert(0, str(SRC))
     t0 = time.perf_counter()
     card, name, peak = phase_device()

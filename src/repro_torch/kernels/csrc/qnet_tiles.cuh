@@ -2,19 +2,33 @@
 // fused_qnet.cu (one parameter set over dense rows) and packed_qnet.cu (one
 // parameter set per worker over packed or dense rows).
 //
-// Every layer is one launch of `linear_act`, a tiled SGEMM with the K slab of
-// A and B staged in shared memory, a register micro-tile of TM x TN outputs
-// per thread, and bias + ReLU in the epilogue; the K -> 1 head is a fifth,
-// one-thread-per-row kernel.  blockIdx.z is the batch entry (the worker):
-// B, bias and C advance by their batch strides, and the A loader receives z.
-// With one batch entry this is exactly the single-network forward.
+// Every layer is one launch of `linear_act`, a tiled SGEMM with K slabs of A
+// and B double-buffered in shared memory, a register micro-tile of TM x TN
+// outputs per thread, and bias + ReLU in the epilogue; the K -> 1 head is a
+// fifth, one-thread-per-row kernel.  blockIdx.z is the batch entry (the
+// worker): B, bias and C advance by their batch strides, and the A loader
+// receives z.  With one batch entry this is exactly the single-network
+// forward.
+//
+// What bounds it.  At 2048 rows layer 1 (2048 x 1024 x 2049) holds 78% of
+// the FMAs; with one parameter set the forward is bound by f32 FFMA issue,
+// so each thread keeps up to 8 x 8 accumulators and reads its A and B
+// values from shared memory as float4 (16 FMAs per 16-byte read at 8 x 8,
+// where 4 x 4 scalar reads gave 2).  Each slab's global loads are issued
+// into registers before the current slab's FMAs and stored after them, so
+// their latency hides behind the arithmetic, with one barrier per slab.
+// With many workers of few rows each (128 x 32) the per-worker weights are
+// read once per row tile, so the tile never takes more rows than a worker
+// has: that shape is bound by weight bytes.
 //
 // Determinism.  Each output element is one thread's sequential fmaf chain
 // over k = 0 .. K-1, starting from +0, whatever the tile or the A loader: no
-// split-K, no atomics, no reduction whose order depends on scheduling.  So a
-// row's q depends only on that row's input and its worker's weights, two
-// launches are bit-identical, and two loaders that produce the same A values
-// (the packed planes and their densified rows) give the same bits.
+// split-K, no atomics, no reduction whose order depends on scheduling.
+// Zeros that pad the K tail add exactly +0.  So a row's q depends only on
+// that row's input and its worker's weights, two launches are
+// bit-identical, every tile gives the same bits, and two loaders that
+// produce the same A values (the packed planes and their densified rows)
+// give the same bits.
 
 #pragma once
 
@@ -23,51 +37,77 @@
 
 namespace qnet {
 
+constexpr int BK = 16;  // K slab: two bytes of a packed row, one barrier each
+
 // A = row-major f32 [M, ld] per batch entry, entry z at a + z * batch_stride.
+// load4 returns A[z, m, k .. k + 3] (k a multiple of 4), zero past K.
 struct DenseRows {
   const float* a;
   long long batch_stride;
   int ld;
-  __device__ float operator()(int z, int m, int k) const {
-    return a[z * batch_stride + (long long)m * ld + k];
+  __device__ float4 load4(int z, int m, int k, int K, bool vec) const {
+    const float* p = a + z * batch_stride + (long long)m * ld + k;
+    if (vec && k + 3 < K) return *reinterpret_cast<const float4*>(p);
+    return make_float4(k < K ? p[0] : 0.f, k + 1 < K ? p[1] : 0.f,
+                       k + 2 < K ? p[2] : 0.f, k + 3 < K ? p[3] : 0.f);
+  }
+  // float4 loads are aligned: 16-byte base, ld and batch stride in float4s
+  bool aligned() const {
+    return reinterpret_cast<uintptr_t>(a) % 16 == 0 && ld % 4 == 0 &&
+           batch_stride % 4 == 0;
   }
 };
 
 // A = [unpackbits(bits[z, m, :]), frac[z, m]] without writing it anywhere:
 // bits u8 [Z, rows, n_bytes], frac f32 [Z, rows].  Bit k < 8 * n_bytes is
 // bit (7 - k % 8) of byte k / 8 (MSB first, the pack_fps contract), as an
-// exact 0.0 or 1.0; column 8 * n_bytes is the steps-left feature.
+// exact 0.0 or 1.0; column 8 * n_bytes is the steps-left feature.  load4
+// unpacks one nibble into four k values.
 struct PackedRows {
   const uint8_t* bits;
   const float* frac;
   int rows;
   int n_bytes;
-  __device__ float operator()(int z, int m, int k) const {
+  __device__ float4 load4(int z, int m, int k, int K, bool) const {
     const long long r = (long long)z * rows + m;
-    if (k < 8 * n_bytes)
-      return (float)((bits[r * n_bytes + (k >> 3)] >> (7 - (k & 7))) & 1);
-    return frac[r];
+    if (k < 8 * n_bytes) {
+      const unsigned nib = (bits[r * n_bytes + (k >> 3)] >> ((k & 4) ? 0 : 4)) & 15u;
+      return make_float4((float)(nib >> 3), (float)((nib >> 2) & 1),
+                         (float)((nib >> 1) & 1), (float)(nib & 1));
+    }
+    return make_float4(k < K ? frac[r] : 0.f, 0.f, 0.f, 0.f);
   }
+  bool aligned() const { return true; }
 };
 
-// C[z] = act(A[z] @ B[z] + bias[z]) for the block's batch entry z, with
-// A [M, K], B [K, N] row-major (the JAX [in, out] layout), C [M, N].  Thread
-// (tr, tc) owns rows tr + i * (BM / TM) and columns tc + j * (BN / TN) of the
-// block tile, so a warp's shared-memory reads and its stores to C fall on
-// consecutive addresses.  The K tail and a ragged M or N are masked with
-// zeros, which add exactly +0 to a sum.
-template <int BM, int BN, int BK, int TM, int TN, bool RELU, class ALoad>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
+// C[z] = relu(A[z] @ B[z] + bias[z]) for the block's batch entry z, with
+// A [M, K], B [K, N] row-major (the JAX [in, out] layout), C [M, N].
+// Thread (tr, tc) owns rows g * 4 RT + 4 tr + i (g < TM / 4, i < 4) and
+// columns g * 4 CT + 4 tc + j of the block tile, so its shared-memory reads
+// are float4 and a warp's float4 reads of B cover consecutive addresses.
+// The K tail and a ragged M or N are masked with zeros, which add exactly
+// +0 to a sum.  vec: B and C allow float4 access (N % 4 == 0, 16-byte
+// bases); vec_a: the A loader's float4 path is aligned.
+// Registers are held to 128 a thread (512 threads an SM), so two 256-thread
+// blocks share an SM.
+template <int BM, int BN, int TM, int TN, class ALoad>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN), 512 / ((BM / TM) * (BN / TN)))
 linear_act(ALoad A, const float* __restrict__ B, long long sB,
            const float* __restrict__ bias, long long sBias,
-           float* __restrict__ C, long long sC, int M, int N, int K) {
-  constexpr int RT = BM / TM;           // thread rows
-  constexpr int CT = BN / TN;           // thread columns
+           float* __restrict__ C, long long sC, int M, int N, int K, bool vec,
+           bool vec_a) {
+  constexpr int RT = BM / TM;            // thread rows
+  constexpr int CT = BN / TN;            // thread columns
   constexpr int NT = RT * CT;
-  // +4 floats per k row: the transposed store of the A slab then hits 32
-  // distinct banks per warp
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN];
+  constexpr int AQ = BM * BK / 4;        // float4s of an A slab
+  constexpr int BQ = BK * BN / 4;        // float4s of a B slab
+  constexpr int A_PER = (AQ + NT - 1) / NT;
+  constexpr int B_PER = (BQ + NT - 1) / NT;
+  static_assert(TM % 4 == 0 && TN % 4 == 0, "micro-tiles are float4 groups");
+  // +4 floats per k row keep rows 16-byte aligned for the float4 reads and
+  // hold the transposed store of the A slab to two-way bank conflicts
+  __shared__ __align__(16) float As[2][BK][BM + 4];
+  __shared__ __align__(16) float Bs[2][BK][BN];
 
   const int z = blockIdx.z;
   B += z * sB;
@@ -79,50 +119,116 @@ linear_act(ALoad A, const float* __restrict__ B, long long sB,
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
 
+  float4 ra[A_PER], rb[B_PER];
+  auto fetch = [&](int k0) {             // global -> registers
+#pragma unroll
+    for (int i = 0; i < A_PER; ++i) {
+      const int e = tid + i * NT;
+      const int m = e / (BK / 4), k = k0 + (e % (BK / 4)) * 4;
+      ra[i] = (e < AQ && m0 + m < M) ? A.load4(z, m0 + m, k, K, vec_a)
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int i = 0; i < B_PER; ++i) {
+      const int e = tid + i * NT;
+      const int k = k0 + e / (BN / 4), n = n0 + (e % (BN / 4)) * 4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (e < BQ && k < K) {
+        const float* p = B + (size_t)k * N + n;
+        if (vec && n + 3 < N) {
+          v = *reinterpret_cast<const float4*>(p);
+        } else {
+          if (n < N) v.x = p[0];
+          if (n + 1 < N) v.y = p[1];
+          if (n + 2 < N) v.z = p[2];
+          if (n + 3 < N) v.w = p[3];
+        }
+      }
+      rb[i] = v;
+    }
+  };
+  auto stash = [&](int buf) {            // registers -> shared
+#pragma unroll
+    for (int i = 0; i < A_PER; ++i) {
+      const int e = tid + i * NT;
+      if (e < AQ) {
+        const int m = e / (BK / 4), k = (e % (BK / 4)) * 4;
+        As[buf][k][m] = ra[i].x;
+        As[buf][k + 1][m] = ra[i].y;
+        As[buf][k + 2][m] = ra[i].z;
+        As[buf][k + 3][m] = ra[i].w;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < B_PER; ++i) {
+      const int e = tid + i * NT;
+      if (e < BQ)
+        *reinterpret_cast<float4*>(&Bs[buf][e / (BN / 4)][(e % (BN / 4)) * 4]) = rb[i];
+    }
+  };
+
   float acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += NT) {
-      const int m = e / BK, k = e % BK;
-      const int gm = m0 + m, gk = k0 + k;
-      As[k][m] = (gm < M && gk < K) ? A(z, gm, gk) : 0.f;
-    }
-    for (int e = tid; e < BK * BN; e += NT) {
-      const int k = e / BN, n = e % BN;
-      const int gk = k0 + k, gn = n0 + n;
-      Bs[k][n] = (gk < K && gn < N) ? B[(size_t)gk * N + gn] : 0.f;
-    }
-    __syncthreads();
+  const int n_slabs = (K + BK - 1) / BK;
+  fetch(0);
+  stash(0);
+  __syncthreads();
+  for (int s = 0; s < n_slabs; ++s) {
+    const int buf = s & 1;
+    if (s + 1 < n_slabs) fetch((s + 1) * BK);   // in flight during the FMAs
 #pragma unroll
     for (int k = 0; k < BK; ++k) {
       float a[TM], b[TN];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[k][tr + i * RT];
+      for (int g = 0; g < TM / 4; ++g) {
+        const float4 v = *reinterpret_cast<const float4*>(&As[buf][k][g * 4 * RT + 4 * tr]);
+        a[4 * g] = v.x;
+        a[4 * g + 1] = v.y;
+        a[4 * g + 2] = v.z;
+        a[4 * g + 3] = v.w;
+      }
 #pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[k][tc + j * CT];
+      for (int g = 0; g < TN / 4; ++g) {
+        const float4 v = *reinterpret_cast<const float4*>(&Bs[buf][k][g * 4 * CT + 4 * tc]);
+        b[4 * g] = v.x;
+        b[4 * g + 1] = v.y;
+        b[4 * g + 2] = v.z;
+        b[4 * g + 3] = v.w;
+      }
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
+    // the other buffer was last read before the previous barrier
+    if (s + 1 < n_slabs) stash(buf ^ 1);
     __syncthreads();
   }
 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + tr + i * RT;
+    const int gm = m0 + (i / 4) * 4 * RT + 4 * tr + i % 4;
     if (gm >= M) continue;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tc + j * CT;
-      if (gn >= N) continue;
-      float v = acc[i][j] + bias[gn];
-      if (RELU) v = fmaxf(v, 0.f);
-      C[(size_t)gm * N + gn] = v;
+    for (int g = 0; g < TN / 4; ++g) {
+      const int gn = n0 + g * 4 * CT + 4 * tc;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j] = fmaxf(acc[i][4 * g + j] + (gn + j < N ? bias[gn + j] : 0.f), 0.f);
+      }
+      float* out = C + (size_t)gm * N + gn;
+      if (vec && gn + 3 < N) {
+        *reinterpret_cast<float4*>(out) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (gn + j < N) out[j] = v[j];
+      }
     }
   }
 }
@@ -147,17 +253,15 @@ constexpr int kSMs = 132;
 template <int BM, int BN, int TM, int TN, class ALoad>
 cudaError_t launch_tile(ALoad A, const float* B, long long sB,
                         const float* bias, long long sBias, float* C,
-                        long long sC, int M, int N, int K, int Z, bool relu,
-                        cudaStream_t s) {
+                        long long sC, int M, int N, int K, int Z, cudaStream_t s) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, Z);
   if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
   const dim3 block((BM / TM) * (BN / TN));
-  if (relu)
-    linear_act<BM, BN, 8, TM, TN, true><<<grid, block, 0, s>>>(
-        A, B, sB, bias, sBias, C, sC, M, N, K);
-  else
-    linear_act<BM, BN, 8, TM, TN, false><<<grid, block, 0, s>>>(
-        A, B, sB, bias, sBias, C, sC, M, N, K);
+  const bool vec = N % 4 == 0 && sB % 4 == 0 && sC % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(B) | reinterpret_cast<uintptr_t>(C)) % 16 == 0;
+  const bool vec_a = A.aligned();
+  linear_act<BM, BN, TM, TN><<<grid, block, 0, s>>>(A, B, sB, bias, sBias, C,
+                                                    sC, M, N, K, vec, vec_a);
   return cudaGetLastError();
 }
 
@@ -165,20 +269,29 @@ inline long long n_blocks(int M, int N, int Z, int bm, int bn) {
   return (long long)Z * ((M + bm - 1) / bm) * ((N + bn - 1) / bn);
 }
 
-// The largest tile whose grid still covers every SM twice (or once for the
-// middle size); the sums do not depend on the choice.
+// The first tile, largest micro-tile first, whose grid puts a block on
+// every SM, among those no taller than the batch entry's rows rounded up
+// to a tile height (a 128-row tile over 32 rows would waste 3/4 of its
+// FMAs); the smallest tile otherwise.  The 8 x 8 tile is taken from 128
+// blocks up: four idle SMs cost less than halving the micro-tile.  The
+// sums do not depend on the choice.
 template <class ALoad>
 cudaError_t linear(ALoad A, const float* B, long long sB, const float* bias,
                    long long sBias, float* C, long long sC, int M, int N,
-                   int K, int Z, bool relu, cudaStream_t s) {
-  if (n_blocks(M, N, Z, 128, 128) >= 2 * kSMs)
-    return launch_tile<128, 128, 8, 8>(A, B, sB, bias, sBias, C, sC, M, N, K,
-                                       Z, relu, s);
-  if (n_blocks(M, N, Z, 64, 64) >= kSMs)
-    return launch_tile<64, 64, 4, 4>(A, B, sB, bias, sBias, C, sC, M, N, K,
-                                     Z, relu, s);
-  return launch_tile<32, 32, 2, 2>(A, B, sB, bias, sBias, C, sC, M, N, K, Z,
-                                   relu, s);
+                   int K, int Z, cudaStream_t s) {
+  const int cap = M <= 32 ? 32 : M <= 64 ? 64 : 128;
+  auto fits = [&](int bm, int bn, long long min_blocks = kSMs) {
+    return bm <= cap && n_blocks(M, N, Z, bm, bn) >= min_blocks;
+  };
+#define QNET_TILE(BM_, BN_, TM_, TN_)                                         \
+  launch_tile<BM_, BN_, TM_, TN_>(A, B, sB, bias, sBias, C, sC, M, N, K, Z, s)
+  if (fits(128, 128, kSMs - 4)) return QNET_TILE(128, 128, 8, 8);
+  if (fits(128, 64)) return QNET_TILE(128, 64, 8, 4);
+  if (fits(64, 64)) return QNET_TILE(64, 64, 4, 4);
+  if (fits(32, 128)) return QNET_TILE(32, 128, 4, 8);
+  if (fits(32, 64)) return QNET_TILE(32, 64, 4, 4);
+  return QNET_TILE(32, 32, 4, 4);
+#undef QNET_TILE
 }
 
 // The five layers for Z batch entries of M rows each on stream s.  Layer 1
@@ -197,16 +310,16 @@ cudaError_t forward(ALoad x, const float* w1, const float* b1,
   const long long m = M;
   cudaError_t err;
   if ((err = linear(x, w1, (long long)d0 * d1, b1, d1, h1, m * d1, M, d1, d0,
-                    Z, true, s)) != cudaSuccess)
+                    Z, s)) != cudaSuccess)
     return err;
   if ((err = linear(DenseRows{h1, m * d1, d1}, w2, (long long)d1 * d2, b2, d2,
-                    h2, m * d2, M, d2, d1, Z, true, s)) != cudaSuccess)
+                    h2, m * d2, M, d2, d1, Z, s)) != cudaSuccess)
     return err;
   if ((err = linear(DenseRows{h2, m * d2, d2}, w3, (long long)d2 * d3, b3, d3,
-                    h3, m * d3, M, d3, d2, Z, true, s)) != cudaSuccess)
+                    h3, m * d3, M, d3, d2, Z, s)) != cudaSuccess)
     return err;
   if ((err = linear(DenseRows{h3, m * d3, d3}, w4, (long long)d3 * d4, b4, d4,
-                    h4, m * d4, M, d4, d3, Z, true, s)) != cudaSuccess)
+                    h4, m * d4, M, d4, d3, Z, s)) != cudaSuccess)
     return err;
   const long long rows = m * Z;
   head<<<(unsigned)((rows + 255) / 256), 256, 0, s>>>(h4, w5, b5, q, M, d4, Z);

@@ -8,7 +8,10 @@ tensor it runs the plain version (``ref.attention_ref``).  The kernel reads
 q, k and v by strides, so there are no transposes on the card.  Inputs the
 kernel does not take raise on either device.  ``flash_attention.launches``
 counts the kernel launches, so a run can show that its attention went
-through it.
+through it.  The bf16 kernel copies rows with 16-byte ``cp.async``, so a
+CUDA bf16 tensor's data pointer and its batch, sequence and head strides
+must be 16-byte multiples (the model's contiguous projections meet
+this).
 """
 
 from __future__ import annotations
@@ -46,6 +49,15 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window must be >= 1 or None, got {window}")
     if prefix_len < 0:
         raise ValueError(f"prefix_len must be >= 0, got {prefix_len}")
+    if q.device.type == "cuda" and q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(3)
+                                        if t.shape[i] > 1):
+                raise ValueError(
+                    f"bf16 {name} on the card needs a 16-byte aligned data "
+                    f"pointer and batch, sequence and head strides in "
+                    f"multiples of 8 elements, got pointer {t.data_ptr()} "
+                    f"and strides {t.stride()}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -15,18 +15,21 @@
 // meet the port's 1e-4 tolerance over a 2049-term reduction, so the
 // products stay in f32 FFMA.
 //
-// Design, simple first.  One launch per layer of the tiled SGEMM in
-// ../../csrc/qnet_tiles.cuh (K slab of A and B in shared memory, a register
-// micro-tile per thread, bias + ReLU in the epilogue) and a one-thread-per-row
-// 32 -> 1 head; h1..h4 live in device memory (13.9 MB at N = 2048, read back
-// once each), which is cheap next to the arithmetic.  The tile is picked per
-// layer so that the grid fills the 132 SMs.  packed_qnet.cu runs the same
-// tiles per worker, so both kernels give the same bits on the same rows.
+// Design.  One launch per layer of the tiled SGEMM in
+// ../../csrc/qnet_tiles.cuh (K slabs of A and B double-buffered in shared
+// memory, up to 8 x 8 outputs per thread read as float4, bias + ReLU in the
+// epilogue) and a one-thread-per-row 32 -> 1 head; h1..h4 live in device
+// memory (13.9 MB at N = 2048, read back once each), which is cheap next to
+// the arithmetic.  The tile is picked per layer so that the grid puts a
+// block on nearly every one of the 132 SMs (layer 1 at N = 2048: 128 x 128
+// tiles of 8 x 8 a thread, 128 blocks).  packed_qnet.cu runs the same tiles per worker, so both kernels
+// give the same bits on the same rows.
 //
-// Row stride and masking.  K = 2049 makes the row stride of x and the
-// length of W1 8196 bytes, not a multiple of 16, so every load is a scalar
-// f32 load (coalesced along the row for A, along the output dim for B); the
-// K tail and ragged N are masked with zeros, which add exactly +0 to a sum.
+// Row stride and masking.  K = 2049 makes the row stride of x 8196 bytes,
+// not a multiple of 16, so layer 1 reads x as scalar f32 loads (16
+// consecutive k of a row per slab); W1's rows (1024 floats) and every
+// hidden layer are read as float4.  The K tail and ragged N are masked
+// with zeros, which add exactly +0 to a sum.
 //
 // Determinism.  Each output element is one thread's sequential fmaf chain
 // over k = 0 .. K-1, whatever the tile: no split-K, no atomics, no

@@ -27,9 +27,12 @@
 // tiled SGEMM in ../../csrc/qnet_tiles.cuh with blockIdx.z = worker:
 //
 //   * layer 1's A tile is unpacked from the u8 planes straight into shared
-//     memory as exact 0.0 / 1.0 (column 2048 is frac), and B is read from
-//     worker w's W1 in the [in, out] layout, so no pack_w1 and no dense
-//     [W, C, 2049] array in device memory;
+//     memory as exact 0.0 / 1.0, one nibble into four k values (column 2048
+//     is frac), and B is read from worker w's W1 in the [in, out] layout,
+//     so no pack_w1 and no dense [W, C, 2049] array in device memory;
+//   * the tile is never taller than a worker's rows rounded up to 32, 64
+//     or 128: at 128 workers x 32 rows a 32-row tile reads each worker's
+//     weights once and wastes no FMAs;
 //   * layers 2-4 use the same template with per-worker strides, h1..h4 in
 //     device memory; the 32 -> 1 head is one thread per row;
 //   * a ragged C is masked in the kernel, not padded; dead or finished rows
