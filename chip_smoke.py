@@ -40,29 +40,33 @@ Phases, each of which exits non-zero on failure:
              a seeded FaultPlan bit-identical to its fault-free twin.
 6. lm_kernels - ``flash_attention`` and ``ssd_scan`` against their plain
              versions (``attention_ref``; ``ssd_ref``, the naive recurrence,
-             and the model's ``ssd_chunked``) at zamba2-1.2b's prefill
-             shapes in bf16 and f32, at small mask, GQA/MQA and group
-             shapes and at shapes that cut the bf16 kernel's 128 x 64 tiles
-             (ragged Sq != Sk, window and prefix edges), within
+             and the model's ``ssd_chunked``) at the prefill shapes of
+             zamba2-1.2b (both kernels) and mamba2-2.7b (the scan at
+             N = 128) in bf16 and f32, at small mask, GQA/MQA and group
+             shapes, at shapes that cut the bf16 attention's 128 x 64 tiles
+             (ragged Sq != Sk, window and prefix edges) and the scan's
+             64-row tiles (N = 128, long runs of chunks, chunks of 96 and
+             512, widths without 16-byte rows), within
              ``tests/test_kernels.py``'s tolerances; two launches
-             bit-identical; strided bf16 views run and a misaligned one
-             raises; kernel, plain, library
+             bit-identical; strided views run (the scan's x, B and C as
+             views of one conv-output buffer) and a misaligned bf16
+             attention view raises; kernel, plain, library
              (``scaled_dot_product_attention`` for causal attention; none
              for the scan) and bound times.  ``packed_qnet`` (the W = 1
              launch of the packed kernel) against its plain version and bit
              for bit against ``fused_qnet`` on the densified rows.
-7. lm      - zamba2-1.2b at full width with seeded random weights made on
-             the card: the kernel route against the plain route in f32
-             (B = 1, S = 512, within 1e-3 of max |logits|, beside the plain
-             route's own rounding floor), 256 decode steps through
-             ``serve_step`` against the kernel-route forward in f32 (within
-             2e-2), and the
-             timed bf16 prefill (B = 2, S = 4096) through
-             ``make_prefill_step``: exactly 6 ``flash_attention`` and 38
-             ``ssd_scan`` launches per forward, finite logits, a
-             bit-identical rerun, tokens/s and each kernel's share; then
-             ``python -m repro_torch.launch.serve`` at its defaults must
-             exit 0.
+7. lm      - zamba2-1.2b, then mamba2-2.7b, at full width with seeded
+             random weights made on the card: the kernel route against the
+             plain route in f32 (B = 1, S = 512, within 1e-3 of max
+             |logits|, beside the plain route's own rounding floor); for
+             zamba2-1.2b 256 decode steps through ``serve_step`` against
+             the kernel-route forward in f32 (within 2e-2); the timed bf16
+             prefill (B = 2, S = 4096) through ``make_prefill_step``:
+             exactly 6 ``flash_attention`` and 38 ``ssd_scan`` calls per
+             zamba2-1.2b forward, 64 ``ssd_scan`` calls per mamba2-2.7b
+             forward, finite logits, a bit-identical rerun, tokens/s and
+             each kernel's share; then ``python -m repro_torch.launch.serve``
+             at its defaults must exit 0.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -70,8 +74,9 @@ package ``repro``.
 
 ``--compare SRC`` runs none of the phases: it builds the kernels of the
 port at SRC and prints one JSON line of sha256 digests of every Q kernel's
-output on the kernels phases' seeded inputs, and the times of the Q kernels
-and of bf16 ``flash_attention`` at the path shape.  Run it on two trees in
+output on the kernels phases' seeded inputs, and the times of the Q kernels,
+of bf16 ``flash_attention`` and of bf16 and f32 ``ssd_scan`` at zamba2-1.2b's
+path shapes, with the scan's error against ``ssd_ref``.  Run it on two trees in
 one call (parent, change, change, parent) to hold them to the same bits on
 one card.
 """
@@ -101,6 +106,7 @@ TRAIN_LOSS_RTOL = 1e-4          # GPU vs CPU losses: cuBLAS vs CPU BLAS sums
 # LM slice: zamba2-1.2b's prefill shapes, and tests/test_kernels.py's
 # tolerances for the Pallas kernels (flash :20-21, :57; ssd :89-90, :102-103)
 LM_ARCH = "zamba2-1.2b"
+SSM_ARCH = "mamba2-2.7b"        # the pure-SSM model: N = 128, 64 layers
 FLASH_PATH = (2, 4096, 32, 32, 64)              # B, S, H, K, D; causal
 FLASH_SMALL = (                                  # B, S, H, K, D, causal, window, prefix
     (2, 256, 4, 2, 64, True, None, 0), (1, 128, 4, 4, 128, True, None, 0),
@@ -116,12 +122,27 @@ FLASH_EDGES = (                                  # B, Sq, Sk, H, K, D, causal, w
     (1, 264, 200, 2, 1, 32, False, None, 0))
 # the path shape before the bf16 kernel moved to tensor cores (PERF.md §6)
 FFMA_FLASH_MS = {"bfloat16": 5.7809, "float32": 5.8006}
-SSD_PATH = (2, 4096, 64, 64, 1, 64, 256)        # B, L, H, P, G, N, chunk
+# the scan at the zamba2 path shape before the chunk-parallel kernel (PERF.md §6)
+PR14_SSD_MS = {("bfloat16", "zamba2-1.2b"): 3.8881, ("float32", "zamba2-1.2b"): 3.5682}
+# B, L, H, P, G, N, chunk of each model's prefill scan
+SSD_PATHS = {"zamba2-1.2b": (2, 4096, 64, 64, 1, 64, 256),
+             "mamba2-2.7b": (2, 4096, 80, 64, 1, 128, 256)}
 SSD_SMALL = ((2, 256, 4, 32, 1, 16, 64), (1, 128, 2, 64, 2, 32, 128),
              (2, 512, 8, 16, 1, 8, 128), (1, 64, 4, 16, 4, 64, 32),
-             (1, 512, 8, 64, 4, 64, 256), (2, 64, 4, 16, 2, 16, 16))
+             (1, 512, 8, 64, 4, 64, 256), (2, 64, 4, 16, 2, 16, 16),
+             # N = 128, one and two groups; a long run of chunks; chunks cut
+             # into a ragged last 64-row tile, or into 8 tiles; widths that
+             # take the element loads (no 16-byte rows)
+             (1, 512, 4, 64, 1, 128, 256), (2, 256, 4, 64, 2, 128, 64),
+             (1, 2048, 2, 32, 1, 64, 64), (1, 192, 4, 16, 1, 16, 96),
+             (1, 512, 2, 16, 1, 16, 512), (1, 40, 2, 12, 1, 20, 40))
+SSD_VIEWS = (2, 512, 8, 64, 1, 128, 256)        # strided views of one xBC buffer
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SSD_TOL = {"float32": 2e-4, "bfloat16": 5e-2}
+# the kernel against ssd_stages, its three launches in plain PyTorch with
+# the same bf16 rounding points: only summation orders differ, and in bf16
+# the roundings of G and of y they flip
+SSD_STAGES_TOL = {"float32": 1e-5, "bfloat16": 2e-3}
 # f32 kernel route vs plain route, x max |logits|: the same f32 math in
 # other summation orders (64-key tiles, a warp scan of cum), amplified over
 # 38 random-weight SSM layers (2.9e-4 of max |logits| measured on an H100);
@@ -777,7 +798,7 @@ def phase_lm_kernels(peak) -> tuple[list[dict], dict]:
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
-    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref, ssd_stages
     from repro_torch.models.ssm import ssd_chunked
 
     def plain_attn(q, k, v, **mk):
@@ -838,7 +859,7 @@ def phase_lm_kernels(peak) -> tuple[list[dict], dict]:
             cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 10),
             4.0 * D * pairs, esize * (2 * B * S * H * D + 2 * B * S * K * D),
             peak[2] if dtype == torch.bfloat16 else peak[0], peak, dtype=name,
-            bound_f32_ffma_ms=4.0 * D * pairs / peak[0] * 1e3,
+            arch=LM_ARCH, bound_f32_ffma_ms=4.0 * D * pairs / peak[0] * 1e3,
             library_vs_kernel_max_abs=lib_err))
         r = rows[-1]
         print(f"flash_attention path B={B} S={S} H={H} K={K} D={D} causal {name}: "
@@ -849,60 +870,89 @@ def phase_lm_kernels(peak) -> tuple[list[dict], dict]:
               f"{r['bound_f32_ffma_ms']:.4f} ms", flush=True)
         del q, k, v, qt, kt, vt, o, lib
 
-    for i, (B, L, H, P, G, N, Q) in enumerate(SSD_SMALL):
-        for dtype in (torch.float32, torch.bfloat16):
-            name = str(dtype).split(".")[1]
-            x, dt, A, Bm, Cm = _ssd_case(B, L, H, P, G, N, dtype, 200 + i)
-            y, st = ssd_scan(x, dt, A, Bm, Cm, chunk=Q)
-            yr, sr = ssd_ref(x, dt, A, Bm, Cm)
-            tag = f"ssd_scan B={B} L={L} H={H} P={P} G={G} N={N} chunk={Q} {name}"
-            err = max(_check_close(tag + " y", y, yr, SSD_TOL[name]),
-                      _check_close(tag + " state", st, sr, SSD_TOL[name]))
-            y2, st2 = ssd_scan(x, dt, A, Bm, Cm, chunk=Q)
-            if not (torch.equal(y2, y) and torch.equal(st2, st)):
-                fail(f"{tag}: two launches differ")
-            print(f"{tag}: max_abs_err {err:.3e}, rerun bit-identical", flush=True)
-
-    B, L, H, P, G, N, Q = SSD_PATH
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[1]
-        x, dt, A, Bm, Cm = _ssd_case(B, L, H, P, G, N, dtype, 300)
+    def check_ssd(tag, x, dt, A, Bm, Cm, Q, stages=False):
+        """The kernel against ssd_ref within SSD_TOL (and, with ``stages``,
+        against ssd_stages within SSD_STAGES_TOL), and a bit-identical rerun;
+        returns the max abs errors against ssd_ref and ssd_stages."""
+        name = str(x.dtype).split(".")[1]
         y, st = ssd_scan(x, dt, A, Bm, Cm, chunk=Q)
         yr, sr = ssd_ref(x, dt, A, Bm, Cm)
-        tag = f"ssd_scan path {name}"
         err = max(_check_close(tag + " y", y, yr, SSD_TOL[name]),
                   _check_close(tag + " state", st, sr, SSD_TOL[name]))
-        yc, sc = ssd_chunked(x, dt, A, Bm, Cm, chunk=Q)
-        err_c = max(_check_close(tag + " y vs ssd_chunked", y, yc, SSD_TOL[name]),
-                    _check_close(tag + " state vs ssd_chunked", st, sc,
-                                 SSD_TOL[name]))
+        err_s = None
+        if stages:
+            ys, ss = ssd_stages(x, dt, A, Bm, Cm, Q)
+            err_s = max(
+                _check_close(tag + " y vs ssd_stages", y, ys, SSD_STAGES_TOL[name]),
+                _check_close(tag + " state vs ssd_stages", st, ss, SSD_STAGES_TOL[name]))
         y2, st2 = ssd_scan(x, dt, A, Bm, Cm, chunk=Q)
         if not (torch.equal(y2, y) and torch.equal(st2, st)):
             fail(f"{tag}: two launches differ")
-        ms = cuda_ms(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=Q), 5)
-        path_ms[("ssd_scan", name)] = ms
-        es = x.element_size()
-        nbytes = es * (2 * x.numel() + Bm.numel() + Cm.numel() + st.numel()) \
-            + 4 * (dt.numel() + A.numel())
-        flops = _ssd_flop(B, L, H, P, N, Q)
-        rows.append(_row(
-            "ssd_scan", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
-            "src/repro/kernels/ssd_scan/ssd_scan.py:86", [B, L, H, P, G, N, Q],
-            None, err, ms, cuda_ms(lambda: ssd_ref(x, dt, A, Bm, Cm), 1, warmup=1),
-            None, flops, nbytes, peak[2] if dtype == torch.bfloat16 else peak[0],
-            peak, dtype=name, bound_f32_ffma_ms=flops / peak[0] * 1e3,
-            ssd_chunked_max_abs=err_c,
-            ssd_chunked_ms=cuda_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm, chunk=Q), 3,
-                                   warmup=1)))
-        r = rows[-1]
-        print(f"ssd_scan path B={B} L={L} H={H} P={P} G={G} N={N} chunk={Q} "
-              f"{name}: max_abs_err {err:.3e} vs ssd_ref, {err_c:.3e} vs "
-              f"ssd_chunked | kernel {ms:.4f} ms, plain (ssd_ref) "
-              f"{r['plain_ms']:.4f} ms, ssd_chunked {r['ssd_chunked_ms']:.4f} "
-              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), f32 FFMA "
-              f"bound {r['bound_f32_ffma_ms']:.4f} ms", flush=True)
-        del x, dt, A, Bm, Cm, y, yr, yc, st
-    torch.cuda.empty_cache()
+        return err, err_s
+
+    for i, (B, L, H, P, G, N, Q) in enumerate(SSD_SMALL):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            tag = f"ssd_scan B={B} L={L} H={H} P={P} G={G} N={N} chunk={Q} {name}"
+            err, err_s = check_ssd(tag, *_ssd_case(B, L, H, P, G, N, dtype, 200 + i), Q,
+                                   stages=True)
+            print(f"{tag}: max_abs_err {err:.3e} vs ssd_ref, {err_s:.3e} vs "
+                  f"ssd_stages, rerun bit-identical", flush=True)
+
+    # x, B and C as the model passes them: strided views of one conv output
+    B, L, H, P, G, N, Q = SSD_VIEWS
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device="cuda").manual_seed(500)
+        xbc = (torch.randn(B, L, H * P + 2 * G * N, generator=g, device="cuda")
+               * 0.4).to(dtype)
+        x, Bm, Cm = torch.split(xbc, [H * P, G * N, G * N], dim=-1)
+        x, Bm, Cm = x.unflatten(-1, (H, P)), Bm.unflatten(-1, (G, N)), Cm.unflatten(-1, (G, N))
+        dt = torch.rand(B, L, H, generator=g, device="cuda") * 0.1 + 0.01
+        A = torch.rand(H, generator=g, device="cuda") + 0.5
+        tag = (f"ssd_scan strided views of one [{B}, {L}, {H * P + 2 * G * N}] "
+               f"buffer, N={N} chunk={Q} {str(dtype).split('.')[1]}")
+        err, err_s = check_ssd(tag, x, dt, A, Bm, Cm, Q, stages=True)
+        print(f"{tag}: max_abs_err {err:.3e} vs ssd_ref, {err_s:.3e} vs "
+              f"ssd_stages, rerun bit-identical", flush=True)
+
+    for arch, (B, L, H, P, G, N, Q) in SSD_PATHS.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            x, dt, A, Bm, Cm = _ssd_case(B, L, H, P, G, N, dtype, 300)
+            tag = f"ssd_scan {arch} path {name}"
+            err, _ = check_ssd(tag, x, dt, A, Bm, Cm, Q)
+            y, st = ssd_scan(x, dt, A, Bm, Cm, chunk=Q)
+            yc, sc = ssd_chunked(x, dt, A, Bm, Cm, chunk=Q)
+            err_c = max(_check_close(tag + " y vs ssd_chunked", y, yc, SSD_TOL[name]),
+                        _check_close(tag + " state vs ssd_chunked", st, sc,
+                                     SSD_TOL[name]))
+            del y, st, yc, sc
+            ms = cuda_ms(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=Q), 20)
+            path_ms[("ssd_scan", name, arch)] = ms
+            es = x.element_size()
+            nbytes = es * (2 * x.numel() + Bm.numel() + Cm.numel() + B * H * P * N) \
+                + 4 * (dt.numel() + A.numel())
+            flops = _ssd_flop(B, L, H, P, N, Q)
+            rows.append(_row(
+                "ssd_scan", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+                "src/repro/kernels/ssd_scan/ssd_scan.py:86", [B, L, H, P, G, N, Q],
+                None, err, ms, cuda_ms(lambda: ssd_ref(x, dt, A, Bm, Cm), 1, warmup=1),
+                None, flops, nbytes, peak[2] if dtype == torch.bfloat16 else peak[0],
+                peak, dtype=name, arch=arch, bound_f32_ffma_ms=flops / peak[0] * 1e3,
+                ssd_chunked_max_abs=err_c,
+                ssd_chunked_ms=cuda_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm, chunk=Q), 3,
+                                       warmup=1)))
+            r, pr14 = rows[-1], PR14_SSD_MS.get((name, arch))
+            print(f"ssd_scan {arch} path B={B} L={L} H={H} P={P} G={G} N={N} "
+                  f"chunk={Q} {name}: max_abs_err {err:.3e} vs ssd_ref, {err_c:.3e} "
+                  f"vs ssd_chunked, rerun bit-identical | kernel {ms:.4f} ms"
+                  + (f" (PR 14's kernel: {pr14} ms)" if pr14 else "")
+                  + f", plain (ssd_ref) {r['plain_ms']:.4f} ms, ssd_chunked "
+                  f"{r['ssd_chunked_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}), f32 FFMA bound {r['bound_f32_ffma_ms']:.4f} ms",
+                  flush=True)
+            del x, dt, A, Bm, Cm
+            torch.cuda.empty_cache()
     return rows, path_ms
 
 
@@ -923,96 +973,70 @@ def _profile_top(fn, top: int = 12) -> None:
               f"{e.key[:100]}", flush=True)
 
 
-def phase_lm(path_ms) -> dict:
-    """zamba2-1.2b at full width: route parity, decode parity, the timed
-    bf16 prefill and the launcher.  Returns the kernels' launch counts."""
+def _lm_route_parity(cfg, params, rng, arch) -> None:
+    """The f32 kernel route against the plain route at LM_ROUTE, within
+    LM_ROUTE_TOL of max |logits|, printed beside the plain route against
+    itself with half the SSD chunk (the model's own f32 rounding floor)."""
     from dataclasses import replace
 
-    import numpy as np
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step
-    from repro_torch.models import (count_params, forward_train, init_cache,
-                                    init_params)
-    from repro_torch.models.model import hybrid_n_apps
+    from repro_torch.models import forward_train
 
-    cfg = get_config(LM_ARCH)
-    n_apps, n_ssm = hybrid_n_apps(cfg), cfg.n_layers
-    rng = np.random.default_rng(0)
     f32 = replace(cfg, dtype="float32")
-    t0 = time.perf_counter()
-    params = init_params(f32, 0, device="cuda")
-    torch.cuda.synchronize()
-    print(f"lm: {LM_ARCH} {count_params(cfg):,} parameters, f32 init on the "
-          f"card in {time.perf_counter() - t0:.2f} s", flush=True)
-
-    # 1. kernel route vs plain route, f32
     B, S = LM_ROUTE
     tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (B, S))).cuda()
     lk, _ = forward_train(params, replace(f32, use_pallas=True), {"tokens": tokens})
     lp, _ = forward_train(params, f32, {"tokens": tokens})
-    # the model's own f32 rounding floor: the plain route against itself
-    # with the SSD in 128-chunks (the same math, other roundings)
     half = replace(f32, ssm=replace(f32.ssm, chunk=f32.ssm.chunk // 2))
     lc, _ = forward_train(params, half, {"tokens": tokens})
     scale = float(lp.abs().max())
     route_err = float((lk - lp).abs().max())
     floor = float((lc - lp).abs().max())
-    print(f"lm: f32 kernel route vs plain route at B={B} S={S}: max abs "
+    print(f"lm: {arch} f32 kernel route vs plain route at B={B} S={S}: max abs "
           f"{route_err:.3e} on logits of max |.| {scale:.3f} "
           f"({route_err / scale:.3e} of it); plain route with "
           f"{half.ssm.chunk}-chunks vs {f32.ssm.chunk}-chunks: {floor:.3e} "
           f"({floor / scale:.3e})", flush=True)
     if not bool(torch.isfinite(lk).all()) or route_err > LM_ROUTE_TOL * scale:
-        fail(f"lm: kernel route differs from the plain route by "
+        fail(f"lm: {arch} kernel route differs from the plain route by "
              f"{route_err:.3e} > {LM_ROUTE_TOL} x {scale:.3f}")
-    del lk, lp, lc
 
-    # 2. decode vs forward, f32
-    tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (1, LM_DECODE))).cuda()
-    full, _ = forward_train(params, replace(f32, use_pallas=True), {"tokens": tokens})
-    step = make_serve_step(f32)
-    cache = init_cache(f32, 1, LM_DECODE, device="cuda")
-    outs = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for t in range(LM_DECODE):
-        lg, cache = step(params, cache, tokens[:, t:t + 1])
-        outs.append(lg[:, 0])
-    torch.cuda.synchronize()
-    dec_s = time.perf_counter() - t0
-    dec = torch.stack(outs, dim=1)
-    dec_err = float((dec - full).abs().max())
-    if not bool(((dec - full).abs() <= DECODE_TOL + DECODE_TOL * full.abs()).all()):
-        fail(f"lm: decode differs from forward by {dec_err:.3e} (> {DECODE_TOL} "
-             f"abs + rel)")
-    print(f"lm: {LM_DECODE} f32 decode steps vs the kernel-route forward: max "
-          f"abs {dec_err:.3e} (within {DECODE_TOL}); {LM_DECODE / dec_s:.1f} "
-          f"tok/s at B=1 (host clock)", flush=True)
-    del params, full, dec, outs, cache
-    torch.cuda.empty_cache()
 
-    # 3. the timed bf16 prefill through the kernels
+def _lm_prefill(cfg, rng, path_ms, arch) -> dict:
+    """The timed bf16 prefill at LM_PREFILL through ``make_prefill_step``:
+    exactly one ``flash_attention`` launch per attention application and
+    one ``ssd_scan`` call per SSM layer, finite logits, a bit-identical
+    rerun, tokens/s and each kernel's share.  Returns the launch counts."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params
+    from repro_torch.models.model import hybrid_n_apps
+
+    n_apps = hybrid_n_apps(cfg) if cfg.family == "hybrid" else 0
+    n_ssm = cfg.n_layers
     kcfg = replace(cfg, use_pallas=True)
     params = init_params(kcfg, 0, device="cuda")
     B, S = LM_PREFILL
     batch = {"tokens": torch.from_numpy(rng.integers(1, cfg.vocab, (B, S))).cuda()}
     prefill = make_prefill_step(kcfg)
+    torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = ssd_scan.launches = 0
     logits = prefill(params, batch)
     torch.cuda.synchronize()
     launches = {"flash_attention": flash_attention.launches,
                 "ssd_scan": ssd_scan.launches}
     if launches != {"flash_attention": n_apps, "ssd_scan": n_ssm}:
-        fail(f"lm: one forward made {launches} launches, want {n_apps} "
+        fail(f"lm: one {arch} forward made {launches} launches, want {n_apps} "
              f"flash_attention and {n_ssm} ssd_scan")
     if not bool(torch.isfinite(logits).all()):
-        fail("lm: bf16 prefill logits are not finite")
+        fail(f"lm: {arch} bf16 prefill logits are not finite")
     again = prefill(params, batch)
     if not torch.equal(again, logits):
-        fail("lm: bf16 prefill rerun is not bit-identical")
+        fail(f"lm: {arch} bf16 prefill rerun is not bit-identical")
     del again
     fwd_ms = cuda_ms(lambda: prefill(params, batch), 3, warmup=1)
     walls = []
@@ -1023,22 +1047,82 @@ def phase_lm(path_ms) -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     wall = min(walls)
-    fa_share = n_apps * path_ms[("flash_attention", "bfloat16")] / fwd_ms
-    ss_share = n_ssm * path_ms[("ssd_scan", "bfloat16")] / fwd_ms
-    print(f"lm: bf16 prefill B={B} S={S} ({LM_ARCH}, use_pallas): "
+    fa_ms = path_ms[("flash_attention", "bfloat16")] if n_apps else 0.0
+    ss_ms = path_ms[("ssd_scan", "bfloat16", arch)]
+    fa_share, ss_share = n_apps * fa_ms / fwd_ms, n_ssm * ss_ms / fwd_ms
+    print(f"lm: {arch} bf16 prefill B={B} S={S} (use_pallas): "
           f"{fwd_ms:.2f} ms per forward (CUDA events) = "
           f"{B * S / fwd_ms * 1e3:.0f} tokens/s; host clock {wall * 1e3:.2f} ms "
           f"= {B * S / wall:.0f} tokens/s | per forward {launches['flash_attention']}"
-          f" flash_attention x {path_ms[('flash_attention', 'bfloat16')]:.3f} ms "
-          f"= {100 * fa_share:.1f}%, {launches['ssd_scan']} ssd_scan x "
-          f"{path_ms[('ssd_scan', 'bfloat16')]:.3f} ms = {100 * ss_share:.1f}%, "
-          f"the rest {100 * (1 - fa_share - ss_share):.1f}% | rerun "
-          f"bit-identical, logits finite, peak memory "
+          f" flash_attention x {fa_ms:.3f} ms = {100 * fa_share:.1f}%, "
+          f"{launches['ssd_scan']} ssd_scan x {ss_ms:.3f} ms = "
+          f"{100 * ss_share:.1f}%, the rest {100 * (1 - fa_share - ss_share):.1f}% "
+          f"| rerun bit-identical, logits finite, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-
     _profile_top(lambda: prefill(params, batch))
     del params, logits
     torch.cuda.empty_cache()
+    return launches
+
+
+def phase_lm(path_ms) -> dict:
+    """zamba2-1.2b at full width: route parity, decode parity, the timed
+    bf16 prefill and the launcher; then mamba2-2.7b at full width: route
+    parity and the timed bf16 prefill.  Returns each kernel's launch count
+    per model, ``{(kernel, arch): n}``."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import (count_params, forward_train, init_cache,
+                                    init_params)
+
+    out = {}
+    for arch in (LM_ARCH, SSM_ARCH):
+        cfg = get_config(arch)
+        rng = np.random.default_rng(0)
+        f32 = replace(cfg, dtype="float32")
+        t0 = time.perf_counter()
+        params = init_params(f32, 0, device="cuda")
+        torch.cuda.synchronize()
+        print(f"lm: {arch} {count_params(cfg):,} parameters, f32 init on the "
+              f"card in {time.perf_counter() - t0:.2f} s", flush=True)
+
+        # 1. kernel route vs plain route, f32
+        _lm_route_parity(cfg, params, rng, arch)
+
+        # 2. decode vs forward, f32 (the hybrid)
+        if arch == LM_ARCH:
+            tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (1, LM_DECODE))).cuda()
+            full, _ = forward_train(params, replace(f32, use_pallas=True),
+                                    {"tokens": tokens})
+            step = make_serve_step(f32)
+            cache = init_cache(f32, 1, LM_DECODE, device="cuda")
+            outs = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(LM_DECODE):
+                lg, cache = step(params, cache, tokens[:, t:t + 1])
+                outs.append(lg[:, 0])
+            torch.cuda.synchronize()
+            dec_s = time.perf_counter() - t0
+            dec = torch.stack(outs, dim=1)
+            dec_err = float((dec - full).abs().max())
+            if not bool(((dec - full).abs() <= DECODE_TOL + DECODE_TOL * full.abs()).all()):
+                fail(f"lm: decode differs from forward by {dec_err:.3e} (> "
+                     f"{DECODE_TOL} abs + rel)")
+            print(f"lm: {LM_DECODE} f32 decode steps vs the kernel-route forward: "
+                  f"max abs {dec_err:.3e} (within {DECODE_TOL}); "
+                  f"{LM_DECODE / dec_s:.1f} tok/s at B=1 (host clock)", flush=True)
+            del full, dec, outs, cache
+        del params
+        torch.cuda.empty_cache()
+
+        # 3. the timed bf16 prefill through the kernels
+        for name, n in _lm_prefill(cfg, rng, path_ms, arch).items():
+            out[(name, arch)] = n
 
     # 4. the launcher at its defaults
     import os
@@ -1050,15 +1134,17 @@ def phase_lm(path_ms) -> dict:
         fail(f"lm: python -m repro_torch.launch.serve exited {res.returncode}:\n"
              f"{res.stderr[-2000:]}")
     print("lm: launcher: " + " | ".join(res.stdout.strip().splitlines()), flush=True)
-    return launches
+    return out
 
 
 def compare(src: Path) -> None:
     """``--compare SRC``: the port at SRC (the ``src`` of another checkout)
     on the seeded inputs of the kernels phases.  Prints one JSON line with
-    sha256 digests of every Q kernel's output and the times of the kernels
-    this slice redesigned, so two trees run in one call can be held to the
-    same bits and timed on the same card."""
+    sha256 digests of every Q kernel's output and the times of the
+    redesigned kernels (the Q kernels, bf16 ``flash_attention``, and bf16
+    and f32 ``ssd_scan`` at zamba2-1.2b's path shape, with the scan's max
+    abs error against ``ssd_ref``), so two trees run in one call can be
+    held to the same bits and timed on the same card."""
     import hashlib
     sys.path.insert(0, str(src))
     card, _, _ = phase_device(src)
@@ -1070,6 +1156,8 @@ def compare(src: Path) -> None:
     from repro_torch.kernels.packed_qnet.ops import (dense_qnet_stacked,
                                                      packed_qnet,
                                                      packed_qnet_stacked)
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
     resolve_device("cuda")
     phase_build(report=False)
 
@@ -1099,8 +1187,20 @@ def compare(src: Path) -> None:
     B, S, H, K, D = FLASH_PATH
     q, k, v = _flash_case(B, S, S, H, K, D, torch.bfloat16, 100)
     ms["flash_attention bf16 path"] = cuda_ms(lambda: flash_attention(q, k, v), 10)
-    print(json.dumps({"src": str(src), "card": card, "digests": bits_of, "ms": ms}),
-          flush=True)
+    del q, k, v
+    B, L, H, P, G, N, Q = SSD_PATHS[LM_ARCH]     # the shape every tree takes
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        key = f"ssd_scan {str(dtype).split('.')[1]} {LM_ARCH} path"
+        x, dt, A, Bm, Cm = _ssd_case(B, L, H, P, G, N, dtype, 300)
+        y, st = ssd_scan(x, dt, A, Bm, Cm, chunk=Q)
+        yr, sr = ssd_ref(x, dt, A, Bm, Cm)
+        errs[key] = max(float((y.float() - yr.float()).abs().max()),
+                        float((st.float() - sr.float()).abs().max()))
+        ms[key] = cuda_ms(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=Q), 20)
+        del x, dt, A, Bm, Cm, y, st, yr, sr
+    print(json.dumps({"src": str(src), "card": card, "digests": bits_of, "ms": ms,
+                      "max_abs_err_vs_ssd_ref": errs}), flush=True)
 
 
 def main() -> None:
@@ -1130,7 +1230,7 @@ def main() -> None:
     lm_rows, path_ms = phase_lm_kernels(peak)
     launches = phase_lm(path_ms)
     for r in lm_rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = launches[(r["name"], r["arch"])]
     rows += lm_rows
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s on {card}", flush=True)
     print(json.dumps({"card": card, "kernels": rows}), flush=True)

@@ -27,7 +27,7 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(nvcc_build().wait()))
         fn = lib.ssd_scan_forward
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 \
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 \
             + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]

@@ -1,13 +1,15 @@
 """Port of ``repro.kernels.ssd_scan.ops``: ``ssd_scan``, the Mamba2 SSD
 chunked scan, ``(y, final_state)``.
 
-On a CUDA tensor it launches the hand-written kernel (``csrc/ssd_scan.cu``)
-on the current stream, or raises; on a CPU tensor it runs the plain version
-(``ref.ssd_ref``, the definitional recurrence).  The kernel reads x, B and
-C by strides, so the model's views into its conv output go in as they are;
-dt and A go in as f32 (a bf16 dt is widened, exactly).  Inputs the kernel
-does not take raise on either device.  ``ssd_scan.launches`` counts the
-kernel launches, so a run can show that its SSM layers went through it.
+On a CUDA tensor it launches the hand-written kernel (``csrc/ssd_scan.cu``:
+chunk summaries, a pass over chunk states, then the chunks' outputs, three
+launches) on the current stream, or raises; on a CPU tensor it runs the
+plain version (``ref.ssd_ref``, the definitional recurrence).  The kernel
+reads x, B and C by strides, so the model's views into its conv output go
+in as they are; dt and A go in as f32 (a bf16 dt is widened, exactly).
+Inputs the kernel does not take raise on either device.
+``ssd_scan.launches`` counts the wrapper's calls that launched the kernel,
+so a run can show that its SSM layers went through it.
 """
 
 from __future__ import annotations
@@ -18,9 +20,8 @@ from repro_torch.kernels.ssd_scan import build
 from repro_torch.kernels.ssd_scan.ref import ssd_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 64        # P
-MAX_STATE_DIM = 64       # N
-MAX_CHUNK = 256          # Q: dt x, B and C of a chunk fit shared memory
+MAX_HEAD_DIM = 64        # P: the [16, P] accumulators of a warp
+MAX_STATE_DIM = 128      # N: C's fragments of a warp stay in registers
 
 
 def _check(x, dt, A, B_, C_, chunk: int) -> int:
@@ -53,9 +54,8 @@ def _check(x, dt, A, B_, C_, chunk: int) -> int:
     if any(t.stride(-1) != 1 for t in (x, B_, C_)):
         raise ValueError("the last dim of x, B and C must be contiguous")
     q = min(chunk, L)
-    if q <= 0 or L % q or q > MAX_CHUNK or (q > 64 and q % 64):
-        raise ValueError(f"chunk {q} must divide L={L}, be <= {MAX_CHUNK}, "
-                         f"and be <= 64 or a multiple of 64")
+    if q <= 0 or L % q:
+        raise ValueError(f"chunk {q} must divide L={L}")
     return q
 
 
@@ -75,14 +75,22 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     a32 = A.float().contiguous()
     y = torch.empty((Bb, L, H, P), device=x.device, dtype=x.dtype)
     final = torch.empty((Bb, H, P, N), device=x.device, dtype=x.dtype)
+    cum = torch.empty((Bb, H, L), device=x.device, dtype=torch.float32)
+    states = torch.empty((Bb, H, L // q, P, N), device=x.device,
+                         dtype=torch.float32)
+    # bf16: the entering states as hi and lo bf16 planes, N padded to 16
+    hl = torch.empty((Bb, H, L // q, 2, P, -(-N // 16) * 16), device=x.device,
+                     dtype=torch.bfloat16) if x.dtype == torch.bfloat16 else None
     lib = build.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ssd_scan_forward(
             DTYPES[x.dtype], x.data_ptr(), dt32.data_ptr(), a32.data_ptr(),
             B_.data_ptr(), C_.data_ptr(), y.data_ptr(), final.data_ptr(),
-            Bb, L, H, G, P, N, q, *x.stride()[:3], *dt32.stride(),
-            *B_.stride()[:3], *C_.stride()[:3], stream)
+            cum.data_ptr(), states.data_ptr(),
+            None if hl is None else hl.data_ptr(), Bb, L, H, G, P, N, q,
+            *x.stride()[:3], *dt32.stride(), *B_.stride()[:3],
+            *C_.stride()[:3], stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err} "
                            f"({lib.ssd_scan_error_string(err).decode()})")

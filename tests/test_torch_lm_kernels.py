@@ -113,6 +113,14 @@ def _ssd_inputs(B, L, H, P, G, N, dtype, seed, dt_dtype="float32"):
     (1, 128, 2, 64, 2, 32, 128),
     (2, 512, 8, 16, 1, 8, 128),
     (1, 64, 4, 16, 4, 64, 32),
+    # mamba2-2.7b's N = 128, one and two groups, short and long chunks
+    (1, 64, 2, 16, 1, 128, 16),
+    (1, 128, 2, 16, 1, 128, 64),
+    (1, 64, 4, 16, 2, 128, 16),
+    (1, 128, 4, 16, 2, 128, 64),
+    # chunks the kernel cuts into a ragged last 64-row tile, or many tiles
+    (1, 192, 4, 16, 1, 16, 96),
+    (1, 512, 4, 16, 1, 16, 512),
 ])
 def test_ssd_scan_plain_matches_pallas(B, L, H, P, G, N, chunk):
     ins = _ssd_inputs(B, L, H, P, G, N, "float32", L + P + N)
@@ -175,20 +183,16 @@ def test_flash_attention_raises_on_what_the_kernel_does_not_take(case):
 
 
 @pytest.mark.parametrize("case", [
-    "state_dim_128", "head_dim_128", "chunk_not_dividing", "chunk_512",
-    "chunk_96", "heads_not_divisible", "mixed_types"])
+    "state_dim_256", "head_dim_128", "chunk_not_dividing",
+    "heads_not_divisible", "mixed_types"])
 def test_ssd_scan_raises_on_what_the_kernel_does_not_take(case):
     B, L, H, P, G, N, chunk = 1, 64, 4, 16, 1, 16, 32
-    if case == "state_dim_128":
-        N = 128                      # mamba2-2.7b's N: a later PR
+    if case == "state_dim_256":
+        N = 256                      # past every config's N (ROADMAP C)
     elif case == "head_dim_128":
         P = 128
     elif case == "chunk_not_dividing":
         chunk = 48
-    elif case == "chunk_512":
-        L = chunk = 512
-    elif case == "chunk_96":
-        L, chunk = 192, 96
     elif case == "heads_not_divisible":
         G = 3
     x, dt, A = torch.zeros(B, L, H, P), torch.zeros(B, L, H), torch.zeros(H)

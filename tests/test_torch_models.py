@@ -124,6 +124,27 @@ def test_forward_train_matches_the_reference(arch, use_pallas):
     _close(got, want)
 
 
+def test_mamba2_state_dim_128_through_the_kernel_route():
+    """The reduced mamba2-2.7b at the full config's N = 128 with
+    ``use_pallas``: the reference runs its Pallas scan, the port its
+    ``ssd_scan`` wrapper (which takes N <= 128), from one parameter tree."""
+    def widen(cfg):
+        return dataclasses.replace(cfg, use_pallas=True, ssm=dataclasses.replace(
+            cfg.ssm, state_dim=jax_get_config("mamba2-2.7b").ssm.state_dim))
+
+    cfg = widen(jax_get_config("mamba2-2.7b").reduced())
+    assert cfg.ssm.state_dim == 128
+    params = jax.tree_util.tree_map(
+        np.asarray, jax_init_params(cfg, jax.random.PRNGKey(4)))
+    tokens = _tokens(cfg, 2, 32)
+    want, _ = jax_forward(params, cfg, {"tokens": jnp.asarray(tokens)})
+    pcfg = widen(get_config("mamba2-2.7b").reduced())
+    got, _ = forward_train(params_from_numpy(params, device="cpu"), pcfg,
+                           {"tokens": tokens})
+    assert got.shape == (2, 32, cfg.vocab)
+    _close(got, want)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_serve_step_matches_the_reference_step_by_step(arch):
     """Logits and every cache tensor, step by step over 8 tokens; the
