@@ -38,7 +38,23 @@ Phases, each of which exits non-zero on failure:
              run's (losses within 1e-4 rel), the acting, rollout and
              learner modes bit-identical to one another, and a run under
              a seeded FaultPlan bit-identical to its fault-free twin.
-6. lm_kernels - ``flash_attention`` and ``ssd_scan`` against their plain
+6. train_rl - the paper's launcher path (``repro_torch.launch.train --mode
+             rl``) on the GPU: ``ensure_trained`` trains Alfabet-S and
+             AIMNet-S at 1500 steps each into a fresh cache under
+             ``build/`` (held-out relative error < 0.05 for both), the
+             trained models on the card and on the CPU agree within 1e-5
+             relative on the held-out molecules, one predictor batch of 16
+             and of 64 rows is timed; ``DistributedTrainer`` at the
+             launcher's defaults runs 4 episodes on the trained
+             ``PropertyService``, checkpointing every episode, and a fresh
+             trainer restored at episode 2 ends bit-identical to it on
+             every ``state_dict`` key; ``greedy_optimize`` scores the
+             general model on the 16 training molecules (OFR);
+             ``serve_molopt --trained`` serves the serve phase's stream.
+             Every fleet Q dispatch is one ``packed_qnet_stacked`` launch
+             and every greedy or serving Q dispatch one ``fused_qnet``
+             launch.
+7. lm_kernels - ``flash_attention`` and ``ssd_scan`` against their plain
              versions (``attention_ref``; ``ssd_ref``, the naive recurrence,
              and the model's ``ssd_chunked``) at the prefill shapes of
              zamba2-1.2b (both kernels) and mamba2-2.7b (the scan at
@@ -55,7 +71,7 @@ Phases, each of which exits non-zero on failure:
              for the scan) and bound times.  ``packed_qnet`` (the W = 1
              launch of the packed kernel) against its plain version and bit
              for bit against ``fused_qnet`` on the densified rows.
-7. lm      - zamba2-1.2b, then mamba2-2.7b, at full width with seeded
+8. lm      - zamba2-1.2b, then mamba2-2.7b, at full width with seeded
              random weights made on the card: the kernel route against the
              plain route in f32 (B = 1, S = 512, within 1e-3 of max
              |logits|, beside the plain route's own rounding floor); for
@@ -102,6 +118,16 @@ CROSS_ROWS = (5, 128)           # a prefix of N = 2048 run on its own tile
 CROSS_STACKED = 32              # a prefix of each worker's rows, likewise
 TRAIN_EPISODES = 3
 TRAIN_LOSS_RTOL = 1e-4          # GPU vs CPU losses: cuBLAS vs CPU BLAS sums
+
+# the RL launcher's path (train_rl): predictors trained at the launcher's
+# 1500 steps, held to the paper's envelope (tests/test_system.py:24-25);
+# the trainer at the launcher's defaults for RL_EPISODES (it runs 40: cut
+# for time), resumed from RL_RESUME_FROM
+RL_EPISODES = 4
+RL_RESUME_FROM = 2
+PREDICTOR_ENVELOPE = 0.05       # rel_err_mean, BDE and IP
+PREDICTOR_RTOL = 1e-5           # card vs CPU on the held-out molecules
+PREDICTOR_ROWS = (16, 64)       # the fleet's batch, and DEFAULT_MAX_BATCH
 
 # LM slice: zamba2-1.2b's prefill shapes, and tests/test_kernels.py's
 # tolerances for the Pallas kernels (flash :20-21, :57; ssd :89-90, :102-103)
@@ -661,6 +687,179 @@ def phase_train() -> int:
           f"{faulted.engine.fault_stats()['n_chem_retries']} chem retries) "
           f"bit-identical to its fault-free twin", flush=True)
     return launches
+
+
+def _state_bytes(tr) -> dict[str, bytes]:
+    import numpy as np
+    return {k: np.asarray(v).dtype.str.encode() + np.asarray(v).tobytes()
+            for k, v in tr.state_dict().items()}
+
+
+def phase_train_rl() -> dict[str, int]:
+    """The RL launcher's path; returns the Q kernels' launches on it."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.agent import DQNConfig
+    from repro_torch.core.distributed import (DistributedTrainer, TrainerConfig,
+                                              greedy_optimize,
+                                              optimization_failure_rate)
+    from repro_torch.kernels.fused_qnet.ops import fused_qnet
+    from repro_torch.kernels.packed_qnet.ops import packed_qnet_stacked
+    from repro_torch.launch import serve_molopt
+    from repro_torch.predictors import gnn, ip_net, training
+    from repro_torch.predictors.service import PropertyService
+    from repro_torch.serving import STATUSES
+
+    work = ROOT / "build" / "chip_smoke_rl"
+    shutil.rmtree(work, ignore_errors=True)
+
+    # 1. predictors, trained on the card at the launcher's steps
+    t0 = time.perf_counter()
+    corpus = training.featurized_corpus(training.build_corpus())
+    print(f"train_rl: corpus of {len(corpus[1])} molecules built and "
+          f"featurized in {time.perf_counter() - t0:.2f} s (host)", flush=True)
+    t0 = time.perf_counter()
+    bm, bp, im, ip_, metrics = training.ensure_trained(
+        str(work / "predictors"), device="cuda", corpus=corpus)
+    print(f"train_rl: ensure_trained {time.perf_counter() - t0:.2f} s | "
+          f"metrics {json.dumps(metrics, sort_keys=True)}", flush=True)
+    for kind in ("bde", "ip"):
+        if not metrics[kind]["rel_err_mean"] < PREDICTOR_ENVELOPE:
+            fail(f"train_rl: {kind} held-out rel_err_mean "
+                 f"{metrics[kind]['rel_err_mean']} >= {PREDICTOR_ENVELOPE}")
+
+    # 2. the card against the CPU on the held-out molecules; batch times
+    feats, _, _, has_bde = corpus
+    dev = {d: training.corpus_to_device(feats, torch.device(d))
+           for d in ("cuda", "cpu")}
+    for kind, model, to_cpu, valid in (
+            ("bde", bm, gnn.params_from_numpy(bp, device="cpu"), has_bde),
+            ("ip", im, ip_net.params_from_numpy(ip_, device="cpu"),
+             feats["conf_valid"] > 0.5)):
+        hold, _ = training.holdout_split(valid)
+        got = training.predict_corpus(model, dev["cuda"], hold, kind)
+        want = training.predict_corpus(to_cpu, dev["cpu"], hold, kind)
+        rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        if not np.isfinite(got).all() or rel > PREDICTOR_RTOL:
+            fail(f"train_rl: {kind} on the card vs the CPU rel {rel:.3e} > "
+                 f"{PREDICTOR_RTOL}")
+        print(f"train_rl: {kind} on the card vs the CPU, {len(hold)} held-out "
+              f"molecules: max rel {rel:.3e} (<= {PREDICTOR_RTOL})", flush=True)
+    del dev
+    svc = PropertyService(bm, bp, im, ip_, device="cuda")
+    for rows in PREDICTOR_ROWS:
+        batch = {k: v[:rows] for k, v in feats.items()}
+        ms = cuda_ms(lambda: svc._run_models(batch), 20)
+        print(f"train_rl: one predictor batch of {rows} rows (pack, one H2D "
+              f"copy, both forwards, one copy back): {ms:.4f} ms (CUDA events)",
+              flush=True)
+    svc = PropertyService(bm, bp, im, ip_, device="cuda")   # fresh counters
+
+    # 3. the trainer on the trained predictors, checkpointed every episode
+    train, rcfg = _train_setup()
+    cfg = TrainerConfig(episodes=RL_EPISODES, dqn=DQNConfig(epsilon_decay=0.97))
+    n = cfg.n_workers * cfg.mols_per_worker
+    mgr = CheckpointManager(str(work / "ckpt"), max_to_keep=RL_EPISODES)
+    packed_qnet_stacked.launches = 0
+    t0 = time.perf_counter()
+    tr = DistributedTrainer(cfg, list(train[:n]), svc, rcfg, device="cuda")
+    while tr.episode < RL_EPISODES:
+        tr.train_episode()
+        tr.save_checkpoint(mgr)
+    tr.close()
+    wall = time.perf_counter() - t0
+    stacked = packed_qnet_stacked.launches
+    if stacked != tr.n_q_dispatches or stacked == 0:
+        fail(f"train_rl: packed_qnet_stacked launches {stacked} != fleet Q "
+             f"dispatches {tr.n_q_dispatches}")
+    if not all(math.isfinite(x) for x in tr.reward_log) or \
+            any(math.isnan(x) for x in tr.loss_log[1:]):
+        fail(f"train_rl: rewards {tr.reward_log} or losses {tr.loss_log}")
+    steps = tr.engine.n_env_steps
+    chem = tr.engine.chem_stats()
+    timing = tr.dispatch_timing()
+    step_ms = tr.rollout_s * 1e3 / steps
+    print(f"train_rl: {RL_EPISODES} episodes in {wall:.3f} s (checkpoints "
+          f"included) | {steps} env steps, {steps / tr.rollout_s:.2f} env "
+          f"steps/s | {tr.n_updates} updates, {tr.n_updates / tr.learner_s:.2f} "
+          f"updates/s | rewards {tr.reward_log} | losses {tr.loss_log}",
+          flush=True)
+    print(f"train_rl: per env step {step_ms:.2f} ms wall: predictor "
+          f"{svc.predict_s * 1e3 / steps:.2f} ms ({100 * svc.predict_s / tr.rollout_s:.1f}%; "
+          f"model batches {svc.model_s * 1e3 / steps:.2f} ms, "
+          f"{svc.n_predictor_batches} batches of {svc.n_predictor_mols} "
+          f"molecules, cache hit rate {svc.cache.hit_rate:.3f}), host "
+          f"enumeration {chem['enum_s'] * 1e3 / steps:.2f} ms, host "
+          f"fingerprints {chem['fp_s'] * 1e3 / steps:.2f} ms, "
+          f"packed_qnet_stacked {timing['kernel_ms']:.4f} ms (CUDA events) | "
+          f"launches {stacked} = fleet Q dispatches {tr.n_q_dispatches}",
+          flush=True)
+    want = _state_bytes(tr)
+
+    # a fresh trainer restored at episode RL_RESUME_FROM runs to the end:
+    # bit-identical on every key.  It shares the service, whose cache holds
+    # each molecule's first predicted value (the cache is not state).
+    for fresh_svc in (False, True):
+        rsvc = PropertyService(bm, bp, im, ip_, device="cuda") if fresh_svc else svc
+        packed_qnet_stacked.launches = 0
+        rt = DistributedTrainer(cfg, list(train[:n]), rsvc, rcfg, device="cuda")
+        if rt.restore_checkpoint(mgr, step=RL_RESUME_FROM) != RL_RESUME_FROM:
+            fail("train_rl: restore did not land on the asked episode")
+        while rt.episode < RL_EPISODES:
+            rt.train_episode()
+        rt.close()
+        got = _state_bytes(rt)
+        diff = sorted(k for k in want if got.get(k) != want[k])
+        if not fresh_svc:
+            if sorted(got) != sorted(want) or diff:
+                fail(f"train_rl: resumed trainer differs from the unbroken run "
+                     f"on {diff[:8]} ({len(diff)} of {len(want)} keys)")
+            if packed_qnet_stacked.launches != rt.n_q_dispatches:
+                fail("train_rl: resumed run's launches != its Q dispatches")
+            print(f"train_rl: restored at episode {RL_RESUME_FROM}, ran to "
+                  f"{RL_EPISODES}: all {len(want)} state_dict keys "
+                  f"bit-identical to the unbroken run", flush=True)
+        else:    # a new process's cache: reported, not gated
+            print(f"train_rl: the same with a fresh PropertyService (empty "
+                  f"cache): {len(want) - len(diff)} of {len(want)} keys "
+                  f"bit-identical{'' if not diff else ', differing: ' + str(diff[:6])}",
+                  flush=True)
+
+    # 4. greedy evaluation of the general model
+    agent = tr.as_agent(epsilon=0.0)
+    fused_qnet.launches = 0
+    recs = greedy_optimize(agent, list(train[:n]), svc, rcfg, cfg.env)
+    greedy = fused_qnet.launches
+    if greedy != agent.n_q_dispatches or greedy == 0 or len(recs) != n:
+        fail(f"train_rl: greedy evaluation: fused_qnet launches {greedy}, Q "
+             f"dispatches {agent.n_q_dispatches}, {len(recs)} records")
+    print(f"train_rl: greedy_optimize on {n} training molecules: OFR "
+          f"{optimization_failure_rate(recs):.3f} | cache hit rate "
+          f"{svc.cache.hit_rate:.3f} | fused_qnet launches {greedy} = Q "
+          f"dispatches {agent.n_q_dispatches}", flush=True)
+
+    # 5. serving through the trained predictors
+    training.DEFAULT_CACHE_DIR = str(work / "predictors")
+    args = serve_molopt.parser().parse_args(SERVE_ARGS + ["--device", "cuda",
+                                                          "--trained"])
+    fused_qnet.launches = 0
+    ssvc, wall = serve_molopt.serve(args)
+    served = fused_qnet.launches
+    st = ssvc.stats()
+    if len(ssvc.results) != args.requests or not ssvc.idle or \
+            any(r.status not in STATUSES for r in ssvc.results):
+        fail(f"train_rl: serve --trained left {len(ssvc.results)} of "
+             f"{args.requests} requests terminal")
+    if served != st["n_q_dispatches"] or served == 0:
+        fail(f"train_rl: serve --trained fused_qnet launches {served} != Q "
+             f"dispatches {st['n_q_dispatches']}")
+    print(f"train_rl: serve --trained: {args.requests} requests in {wall:.3f} s"
+          f" = {args.requests / wall:.2f} req/s | statuses "
+          f"{st['status_counts']} | fused_qnet launches {served} = Q "
+          f"dispatches {st['n_q_dispatches']}", flush=True)
+    return {"packed_qnet_stacked": stacked, "greedy": greedy, "serve": served}
 
 
 def _row(name, source, replaces, shape, launches, max_abs, ms, plain_ms,
@@ -1225,6 +1424,12 @@ def main() -> None:
     launches = phase_train()
     for r in stacked_rows:
         r["launches"] = launches
+    rl = phase_train_rl()
+    for r in rows:
+        r["launches_greedy_eval"] = rl["greedy"]
+        r["launches_serve_trained"] = rl["serve"]
+    for r in stacked_rows:
+        r["launches_train_rl"] = rl["packed_qnet_stacked"]
     rows += stacked_rows
     rows += phase_packed_kernel(peak)
     lm_rows, path_ms = phase_lm_kernels(peak)

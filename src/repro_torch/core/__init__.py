@@ -24,7 +24,8 @@ _EXPORTS = {
     "repro_torch.core.env": ("MoleculeEnv", "BatchedEnv", "EnvConfig"),
     "repro_torch.core.distributed": (
         "DistributedTrainer", "TrainerConfig", "ACTING_MODES",
-        "LEARNER_MODES", "ROLLOUT_MODES"),
+        "LEARNER_MODES", "ROLLOUT_MODES", "greedy_optimize",
+        "optimization_failure_rate"),
 }
 _MODULE_OF = {name: mod for mod, names in _EXPORTS.items() for name in names}
 

@@ -38,8 +38,12 @@ All three give the same batches, so the same losses and parameters.  The
 learner's products are ``torch.matmul`` under autograd; the reference
 leaves them to XLA and has no kernel there.
 
-Checkpointing (``state_dict`` and friends) arrives with ROADMAP A2;
-``greedy_optimize`` and ``optimization_failure_rate`` with A4.
+``state_dict`` / ``load_state_dict`` snapshot the whole training state in
+the reference's checkpoint layout, so a resumed run is bit-identical to
+one that never stopped and a checkpoint crosses between the packages.
+``greedy_optimize`` and ``optimization_failure_rate`` are the paper's
+evaluation of the general model (Eq. 2); their Q dispatches go through
+``DQNAgent.q_values`` and so through ``fused_qnet``.
 """
 
 from __future__ import annotations
@@ -747,27 +751,175 @@ class DistributedTrainer:
             self._sampler_pool = None
 
     # ------------------------------------------------------------ #
-    # checkpoint / resume: ROADMAP A2
+    # checkpoint / resume (bit-exact)
     # ------------------------------------------------------------ #
+    # Everything a continued run's bits depend on, at an EPISODE BOUNDARY:
+    # the three stacked device trees, every worker's action RNG, every
+    # replay buffer ring (priorities included — their sample RNG rides in
+    # the buffer state), the dataset cursor, the episode counter (which
+    # alone positions the target-update cadence and the PER beta anneal)
+    # and the exact epsilon float.  NOT state: the engine (rebuilt from the
+    # start assignment every reset), the chemistry cache and property
+    # memo (pure deterministic memos — they change speed, never bits), and
+    # the fleet view's sticky pinned buffers.
+    #
+    # The keys are the reference's, so a checkpoint crosses between the
+    # packages: ``params/{i}``, ``target/{i}`` and ``opt/{i}`` number the
+    # leaves of the reference's trees in ``jax.tree_util`` order — each
+    # layer's ``b`` before its ``w`` (sorted dict keys), and ``opt`` is
+    # ``step``, then every ``mu`` leaf, then every ``nu`` leaf.
+
+    def _config_fingerprint(self) -> str:
+        """Canonical JSON of the full TrainerConfig — a resume against a
+        DIFFERENT config is an operator error, caught loudly at load."""
+        import dataclasses
+        import json
+
+        def enc(o):
+            if isinstance(o, frozenset):
+                return sorted(o)
+            raise TypeError(f"unserialisable config field: {o!r}")
+        return json.dumps(dataclasses.asdict(self.cfg), sort_keys=True,
+                          default=enc)
+
+    def _ckpt_trees(self) -> dict[str, tuple[list[torch.Tensor], list[int]]]:
+        """Per checkpoint tree, a fresh list of the port's tensors and the
+        indices into it in the reference's leaf order."""
+        p = flat(self.params)
+        st = self.opt_state
+        n = len(p)
+        b_w = [i + j for i in range(0, n, 2) for j in (1, 0)]
+        return {
+            "params": (p, b_w),
+            "target": (flat(self.target_params), b_w),
+            "opt": ([st.step] + list(st.mu) + list(st.nu),
+                    [0] + [1 + k for k in b_w] + [1 + n + k for k in b_w]),
+        }
+
     def state_dict(self) -> dict[str, np.ndarray]:
-        raise NotImplementedError(
-            "DistributedTrainer.state_dict needs repro_torch.checkpoint, "
-            "which ROADMAP A2 ports")
+        """Flat ``{key: array}`` snapshot of the complete training state
+        (``repro_torch.checkpoint.save_flat`` layout, the reference's
+        keys)."""
+        import json
+        from repro_torch.checkpoint.checkpoint import rng_state_to_array
+        flat_state: dict[str, np.ndarray] = {}
+        flat_state["meta/config"] = np.frombuffer(
+            self._config_fingerprint().encode(), np.uint8).copy()
+        flat_state["meta/episode"] = np.asarray(self.episode, np.int64)
+        flat_state["meta/epsilon"] = np.asarray(self.epsilon, np.float64)
+        flat_state["meta/n_updates"] = np.asarray(self.n_updates, np.int64)
+        flat_state["meta/loss_log"] = np.asarray(self.loss_log, np.float64)
+        flat_state["meta/reward_log"] = np.asarray(self.reward_log, np.float64)
+        flat_state["meta/start_log"] = np.frombuffer(json.dumps(
+            [list(t) for t in self.start_log]).encode(), np.uint8).copy()
+        for w, rng in enumerate(self._worker_rngs):
+            flat_state[f"rng/worker_{w}"] = rng_state_to_array(rng)
+        for name, (ts, order) in self._ckpt_trees().items():
+            for i, j in enumerate(order):
+                flat_state[f"{name}/{i}"] = ts[j].detach().to(
+                    "cpu", copy=True).numpy()
+        for w, buf in enumerate(self.buffers):
+            for k, v in buf.state_dict().items():
+                flat_state[f"replay/{w}/{k}"] = v
+        if self._dataset_stream is not None:
+            for k, v in self._dataset_stream.state_dict().items():
+                flat_state[f"dataset/{k}"] = v
+        if self.worker_objectives is not None:
+            # scenario objectives carry mutable state (novelty visit
+            # counts) — snapshot it per worker so a resumed mixed fleet
+            # keeps the exact intrinsic-bonus schedule
+            for w, obj in enumerate(self.worker_objectives):
+                flat_state[f"scenario/{w}"] = np.frombuffer(json.dumps(
+                    obj.state_dict(), sort_keys=True).encode(),
+                    np.uint8).copy()
+        return flat_state
 
     def load_state_dict(self, flat_state) -> None:
-        raise NotImplementedError(
-            "DistributedTrainer.load_state_dict needs repro_torch.checkpoint, "
-            "which ROADMAP A2 ports")
+        """Restore a :meth:`state_dict` snapshot (the port's or the
+        reference's); the continued run is bit-identical to one that never
+        stopped.  Leaves land on ``self.device``, contiguous, in the dtype
+        of the live tensor they replace."""
+        import json
+        from repro_torch.checkpoint.checkpoint import (
+            CheckpointError, rng_state_from_array)
+        got = bytes(np.asarray(flat_state["meta/config"], np.uint8)).decode()
+        want = self._config_fingerprint()
+        if got != want:
+            raise CheckpointError(
+                "checkpoint was written under a different TrainerConfig — "
+                "resume requires the identical configuration")
+        trees = self._ckpt_trees()
+        for name, (ts, order) in trees.items():
+            for i, j in enumerate(order):
+                key, ref = f"{name}/{i}", ts[j]
+                if key not in flat_state:
+                    raise CheckpointError(f"checkpoint missing leaf {key!r}")
+                arr = np.asarray(flat_state[key])
+                if tuple(arr.shape) != tuple(ref.shape):
+                    raise CheckpointError(
+                        f"leaf {key!r}: checkpoint shape {arr.shape} != "
+                        f"live shape {tuple(ref.shape)}")
+                ts[j] = torch.from_numpy(np.array(arr)).to(
+                    self.device, ref.dtype).contiguous()
+        (p, _), (t, _), (opt, _) = (trees[k] for k in ("params", "target", "opt"))
+        n = len(p)
+        self.params, self.target_params = unflat(p), unflat(t)
+        self.opt_state = OptState(step=opt[0], mu=opt[1:1 + n],
+                                  nu=opt[1 + n:])
+        self.episode = int(flat_state["meta/episode"])
+        self.epsilon = float(flat_state["meta/epsilon"])
+        self.n_updates = int(flat_state["meta/n_updates"])
+        self.loss_log = [float(x) for x in
+                         np.asarray(flat_state["meta/loss_log"], np.float64)]
+        self.reward_log = [float(x) for x in
+                           np.asarray(flat_state["meta/reward_log"], np.float64)]
+        self.start_log = [tuple(x) for x in json.loads(
+            bytes(np.asarray(flat_state["meta/start_log"], np.uint8)).decode())]
+        for w in range(len(self._worker_rngs)):
+            self._worker_rngs[w] = rng_state_from_array(
+                flat_state[f"rng/worker_{w}"])
+        for w, buf in enumerate(self.buffers):
+            prefix = f"replay/{w}/"
+            sub = {k[len(prefix):]: v for k, v in flat_state.items()
+                   if k.startswith(prefix)}
+            if not sub:
+                raise CheckpointError(f"checkpoint missing replay state "
+                                      f"for worker {w}")
+            buf.load_state_dict(sub)
+        if self._dataset_stream is not None:
+            sub = {k[len("dataset/"):]: v for k, v in flat_state.items()
+                   if k.startswith("dataset/")}
+            if not sub:
+                raise CheckpointError(
+                    "trainer streams episode starts but the checkpoint "
+                    "carries no dataset cursor")
+            self._dataset_stream.load_state_dict(sub)
+        if self.worker_objectives is not None:
+            # cfg.scenarios rides the config fingerprint, so a matching
+            # checkpoint always carries every worker's scenario state
+            for w, obj in enumerate(self.worker_objectives):
+                key = f"scenario/{w}"
+                if key not in flat_state:
+                    raise CheckpointError(
+                        f"trainer runs a scenario fleet but the checkpoint "
+                        f"carries no objective state for worker {w}")
+                obj.load_state_dict(json.loads(
+                    bytes(np.asarray(flat_state[key], np.uint8)).decode()))
 
     def save_checkpoint(self, manager, step: int | None = None) -> int:
-        raise NotImplementedError(
-            "DistributedTrainer.save_checkpoint needs repro_torch.checkpoint, "
-            "which ROADMAP A2 ports")
+        """Snapshot into a ``repro_torch.checkpoint.CheckpointManager``
+        (flat layout); returns the step label (default: the episode
+        counter)."""
+        label = self.episode if step is None else int(step)
+        manager.save(label, self.state_dict(), flat=True)
+        return label
 
     def restore_checkpoint(self, manager, step: int | None = None) -> int:
-        raise NotImplementedError(
-            "DistributedTrainer.restore_checkpoint needs repro_torch.checkpoint, "
-            "which ROADMAP A2 ports")
+        """Load the latest (or given) snapshot from a manager; returns the
+        restored episode counter."""
+        _, flat_state = manager.restore_flat(step)
+        self.load_state_dict(flat_state)
+        return self.episode
 
     # ------------------------------------------------------------ #
     # evaluation / export
@@ -785,3 +937,35 @@ class DistributedTrainer:
                          seed=seed, network=net, device=self.device)
         agent.epsilon = epsilon
         return agent
+
+
+def greedy_optimize(
+    agent: DQNAgent,
+    molecules: list[Molecule],
+    service,
+    reward_cfg: RewardConfig,
+    env_cfg: EnvConfig = EnvConfig(),
+    seed: int = 0,
+) -> list[StepRecord]:
+    """Greedy (eps as configured in ``agent``) rollout over a molecule
+    batch; returns final-step records — the paper's 'optimize the N
+    antioxidants with the trained model' evaluation."""
+    env = BatchedEnv(molecules, env_cfg, seed=seed)
+    last: list[StepRecord] = []
+    while not env.done:
+        recs = env.step(agent, service, reward_cfg, buffer=None)
+        if recs:
+            last = recs
+    return last
+
+
+def optimization_failure_rate(records: list[StepRecord], *, bde_max: float = 76.0,
+                              ip_min: float = 145.0) -> float:
+    """Eq. 2: OFR = 1 - S/A (success = BDE < 76 and IP > 145)."""
+    if not records:
+        return 1.0
+    ok = sum(
+        1 for r in records
+        if r.bde is not None and r.ip is not None and r.bde < bde_max and r.ip > ip_min
+    )
+    return 1.0 - ok / len(records)

@@ -338,18 +338,62 @@ class ReplayBuffer:
     # checkpoint state (bit-exact resume)
     # ------------------------------------------------------------ #
     def state_dict(self) -> dict[str, np.ndarray]:
-        """Checkpoint state; arrives with the port's checkpoint module in
-        the training slice."""
-        raise NotImplementedError(
-            "ReplayBuffer.state_dict needs repro_torch.checkpoint, which the "
-            "training slice of the port adds")
+        """Everything needed to resume bit-identically: the SoA rings
+        (including the per-slot priority array), the ring cursor, the
+        running max priority, the indices of the last draw (pending
+        ``update_priorities`` feedback), and the sampler RNG stream.
+        Allocated capacities (``_rows``/``_cand_cap``) ride along as the
+        array shapes themselves."""
+        from repro_torch.checkpoint.checkpoint import rng_state_to_array
+
+        d = {
+            "state_bits": self._state_bits,
+            "state_frac": self._state_frac,
+            "rewards": self._rewards,
+            "dones": self._dones,
+            "next_bits": self._next_bits,
+            "next_frac": self._next_frac,
+            "next_counts": self._next_counts,
+            "priorities": self._priorities,
+            "size": np.int64(self._size),
+            "pos": np.int64(self._pos),
+            "max_priority": np.float64(self._max_priority),
+            "rng": rng_state_to_array(self._rng),
+        }
+        if self._last_idx is not None:
+            d["last_idx"] = np.asarray(self._last_idx, np.int64)
+        return d
 
     def load_state_dict(self, d: dict[str, np.ndarray]) -> None:
-        """Checkpoint restore; arrives with the port's checkpoint module in
-        the training slice."""
-        raise NotImplementedError(
-            "ReplayBuffer.load_state_dict needs repro_torch.checkpoint, which "
-            "the training slice of the port adds")
+        """Restore the state written by :meth:`state_dict` into a buffer
+        constructed with the SAME config (capacity / sampling / bounds —
+        those live in the trainer config, not the checkpoint)."""
+        from repro_torch.checkpoint.checkpoint import rng_state_from_array
+
+        bits = np.asarray(d["state_bits"], np.uint8)
+        rows = bits.shape[0]
+        nb = np.asarray(d["next_bits"], np.uint8)
+        if bits.shape[1:] != (FP_BYTES,) or nb.shape[0] != rows \
+                or nb.shape[2:] != (FP_BYTES,) or rows > self.capacity:
+            raise ValueError(
+                f"replay state shape mismatch: state_bits {bits.shape}, "
+                f"next_bits {nb.shape}, capacity {self.capacity}")
+        self._state_bits = bits
+        self._state_frac = np.asarray(d["state_frac"], np.float32)
+        self._rewards = np.asarray(d["rewards"], np.float32)
+        self._dones = np.asarray(d["dones"]).astype(bool)
+        self._next_bits = nb
+        self._next_frac = np.asarray(d["next_frac"], np.float32)
+        self._next_counts = np.asarray(d["next_counts"], np.int32)
+        self._priorities = np.asarray(d["priorities"], np.float64)
+        self._rows = rows
+        self._cand_cap = nb.shape[1]
+        self._size = int(d["size"])
+        self._pos = int(d["pos"])
+        self._max_priority = float(d["max_priority"])
+        self._last_idx = (np.asarray(d["last_idx"], np.int64)
+                          if "last_idx" in d else None)
+        self._rng = rng_state_from_array(d["rng"])
 
     # ------------------------------------------------------------ #
     # compatibility / introspection

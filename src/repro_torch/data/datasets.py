@@ -1,4 +1,4 @@
-"""Copy of ``repro.data.datasets``; only its imports and the checkpoint methods differ.
+"""Copy of ``repro.data.datasets``; only its imports differ.
 
 Synthetic molecule datasets.
 
@@ -243,20 +243,36 @@ class DatasetStream:
         self.n_drawn += n
         return out
 
-    # -- checkpoint state ------------------------------------------------ #
+    # -- checkpoint state (bit-exact resume) ---------------------------- #
     def state_dict(self) -> dict[str, np.ndarray]:
-        """Checkpoint state; arrives with the port's checkpoint module
-        (ROADMAP A2)."""
-        raise NotImplementedError(
-            "DatasetStream.state_dict needs repro_torch.checkpoint, which "
-            "ROADMAP A2 ports")
+        """The full cursor: current epoch permutation + position, draw
+        counters, and the permutation RNG stream.  The pool itself is NOT
+        checkpointed — it is a pure function of (dataset name, count,
+        seed), which live in the trainer config."""
+        from repro_torch.checkpoint.checkpoint import rng_state_to_array
+
+        return {
+            "order": np.asarray(self._order, np.int64),
+            "pos": np.int64(self._pos),
+            "n_drawn": np.int64(self.n_drawn),
+            "n_epochs": np.int64(self.n_epochs),
+            "rng": rng_state_to_array(self._rng),
+        }
 
     def load_state_dict(self, d: dict[str, np.ndarray]) -> None:
-        """Checkpoint restore; arrives with the port's checkpoint module
-        (ROADMAP A2)."""
-        raise NotImplementedError(
-            "DatasetStream.load_state_dict needs repro_torch.checkpoint, "
-            "which ROADMAP A2 ports")
+        from repro_torch.checkpoint.checkpoint import rng_state_from_array
+
+        order = np.asarray(d["order"], np.int64)
+        if order.shape[0] not in (0, len(self._pool)) or (
+                order.size and int(order.max()) >= len(self._pool)):
+            raise ValueError(
+                f"dataset cursor permutation over {order.shape[0]} items "
+                f"does not match pool of {len(self._pool)}")
+        self._order = order
+        self._pos = int(d["pos"])
+        self.n_drawn = int(d["n_drawn"])
+        self.n_epochs = int(d["n_epochs"])
+        self._rng = rng_state_from_array(d["rng"])
 
 
 # TrainerConfig.dataset names resolve here (launch/train.py --dataset too)

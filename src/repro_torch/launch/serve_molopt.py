@@ -9,10 +9,11 @@ per-request terminal results and the service counters.
     PYTHONPATH=src python -m repro_torch.launch.serve_molopt \
         --slots 8 --requests 32 --rate 2.0 --deadline-frac 0.3
 
-Properties come from the deterministic ``OracleService`` stub (no
-predictor training, seconds to start); the reference's ``--trained``
-needs the learned predictors, which arrive with a later slice of the
-port.  ``--faults`` arms a seeded ``FaultPlan`` over the
+By default properties come from the deterministic ``OracleService`` stub
+(no predictor training, seconds to start); ``--trained`` trains or loads
+the learned BDE + IP predictors (``ensure_trained``, cached under
+``.cache/predictors_torch``) and serves through a ``PropertyService`` on
+the same device.  ``--faults`` arms a seeded ``FaultPlan`` over the
 predict/chem/request sites, exercising the whole degradation ladder:
 retries, per-request quarantine, breaker trips into degraded serving,
 half-open recovery.  ``--device cpu`` runs the plain PyTorch Q path.
@@ -29,8 +30,8 @@ import torch
 
 from repro_torch.core.agent import QNetwork
 from repro_torch.core.faults import FaultPlan, FaultRule
-from repro_torch.predictors.service import (OracleService, ResilientService,
-                                            RetryPolicy)
+from repro_torch.predictors.service import (OracleService, PropertyService,
+                                            ResilientService, RetryPolicy)
 from repro_torch.serving import (MoleculeOptService, ServeConfig, StreamConfig,
                                  drive_open_loop, latency_stats,
                                  seeded_request_stream)
@@ -48,8 +49,13 @@ def build_service(args) -> MoleculeOptService:
             FaultRule(site="request", kind="transient", rate=args.fault_rate,
                       fail_attempts=1),
         ], seed=args.fault_seed)
-    prop = ResilientService(OracleService(),
-                            RetryPolicy(max_retries=1, seed=args.seed),
+    if args.trained:
+        from repro_torch.predictors.training import ensure_trained
+        bm, bp, im, ip_, _ = ensure_trained(verbose=False, device=args.device)
+        inner = PropertyService(bm, bp, im, ip_, device=args.device)
+    else:
+        inner = OracleService()
+    prop = ResilientService(inner, RetryPolicy(max_retries=1, seed=args.seed),
                             fault_plan=plan, sleep=None)
     return MoleculeOptService(
         net, prop, fault_plan=plan, device=args.device,
@@ -71,6 +77,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--deadline-frac", type=float, default=0.3)
     ap.add_argument("--invalid-every", type=int, default=0,
                     help="poison every Nth request with unparseable SMILES")
+    ap.add_argument("--trained", action="store_true",
+                    help="serve through the trained BDE+IP predictors "
+                         "instead of the oracle stub")
     ap.add_argument("--faults", action="store_true",
                     help="arm a seeded FaultPlan (predict/chem/request)")
     ap.add_argument("--fault-every", type=int, default=7)

@@ -123,8 +123,32 @@ def test_rollout_engine_transitions_are_identical(mode):
 
 
 def test_replay_checkpoint_waits_for_training_slice():
-    buf = T.replay.ReplayBuffer(capacity=4)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        buf.state_dict()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        buf.load_state_dict({})
+    """The replay state (rings, priorities, cursor, pending draw, sampler
+    RNG) is the reference's, key for key and byte for byte, and a buffer
+    restored from the reference's state draws the reference's next batch."""
+    def filled(pkg):
+        rng = np.random.default_rng(3)
+        buf = pkg.replay.ReplayBuffer(capacity=6, seed=1, sampling="prioritized")
+        for i in range(9):                       # wraps the ring
+            n = int(rng.integers(0, 4))
+            buf.add(pkg.replay.Transition(
+                state_fp=rng.integers(0, 256, 256, dtype=np.uint8),
+                steps_left_frac=float(rng.random()), reward=float(rng.normal()),
+                done=bool(i % 4 == 3),
+                next_fps=rng.integers(0, 256, (n, 256), dtype=np.uint8),
+                next_steps_left_frac=float(rng.random())))
+        buf.sample_packed(4, 8, beta=0.5)
+        buf.update_priorities(rng.random(4))
+        return buf
+    jb, tb = filled(J), filled(T)
+    js, ts = jb.state_dict(), tb.state_dict()
+    assert sorted(ts) == sorted(js) and "last_idx" in ts
+    for k in js:
+        a, b = np.asarray(js[k]), np.asarray(ts[k])
+        assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(), k
+    fresh = T.replay.ReplayBuffer(capacity=6, seed=99, sampling="prioritized")
+    fresh.load_state_dict(js)
+    want, got = jb.sample_packed(4, 8, beta=0.7), fresh.sample_packed(4, 8, beta=0.7)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].tobytes() == want[k].tobytes(), k

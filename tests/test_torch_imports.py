@@ -84,6 +84,33 @@ def test_port_has_the_lm_slice():
     assert res.stdout.strip() == "clean"
 
 
+def test_port_has_the_launcher_slice():
+    """The RL launcher's path: checkpointing, the learned predictors and
+    the launcher itself, importable without pulling in JAX or ``repro``."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for rel in ("src/repro_torch/checkpoint/__init__.py",
+                "src/repro_torch/checkpoint/checkpoint.py",
+                "src/repro_torch/predictors/cache.py",
+                "src/repro_torch/predictors/gnn.py",
+                "src/repro_torch/predictors/ip_net.py",
+                "src/repro_torch/predictors/service.py",
+                "src/repro_torch/predictors/training.py",
+                "src/repro_torch/launch/train.py"):
+        assert rel in names
+    code = ("import sys, repro_torch.launch.train, repro_torch.predictors.training, "
+            "repro_torch.checkpoint; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
+            "assert not bad, bad; print('clean')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+    stubs = [p for p in PORT_FILES if "ROADMAP A2" in p.read_text()
+             or "needs repro_torch.checkpoint" in p.read_text()]
+    assert not stubs, stubs
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[p.relative_to(ROOT).as_posix() for p in PORT_FILES])
 def test_no_jax_or_repro_import(path):
