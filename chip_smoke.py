@@ -54,6 +54,27 @@ Phases, each of which exits non-zero on failure:
              Every fleet Q dispatch is one ``packed_qnet_stacked`` launch
              and every greedy or serving Q dispatch one ``fused_qnet``
              launch.
+9. pipeline - run right after train_rl, on its general model, its trained
+             ``PropertyService`` and its predictor cache: the paper's §3.5
+             pipeline and the truth run.  ``fine_tune`` of the worst of 8
+             unseen test molecules after greedy scoring, at full Q width
+             (15 episodes, batches of 16 x 32): one ``fused_qnet`` launch
+             per Q dispatch, a bit-identical rerun, the general agent
+             unchanged bit for bit, and an epsilon = 1 run on the card
+             within 1e-4 abs + 1e-4 rel of the CPU run's parameters; the
+             greedy reward before and after.  ``filter_molecules`` over
+             the greedy records, with the oracle ("DFT") BDE and IP of
+             each survivor.  ``repro_torch.launch.verify`` at the
+             launcher's width (4 x 4 workers, hidden 1024,512,128,32,
+             256 candidates): straight in process (one
+             ``packed_qnet_stacked`` launch per fleet dispatch, 0 shape
+             events after warmup), ``--kill-at 2`` in a fresh process that
+             must die by SIGKILL then ``--resume`` in another, and
+             ``--faults predict,chem``: both reports bit-identical to the
+             straight run's.  The Q kernels at the truth run's default and
+             the examples' shallower widths (padded to five layers) against
+             their plain versions (1e-4).  The quickstart twin on the
+             trained cache: Q dispatches == fleet steps == launches.
 7. lm_kernels - ``flash_attention`` and ``ssd_scan`` against their plain
              versions (``attention_ref``; ``ssd_ref``, the naive recurrence,
              and the model's ``ssd_chunked``) at the prefill shapes of
@@ -128,6 +149,21 @@ RL_RESUME_FROM = 2
 PREDICTOR_ENVELOPE = 0.05       # rel_err_mean, BDE and IP
 PREDICTOR_RTOL = 1e-5           # card vs CPU on the held-out molecules
 PREDICTOR_ROWS = (16, 64)       # the fleet's batch, and DEFAULT_MAX_BATCH
+
+# the paper's §3.5 pipeline (pipeline): examples/optimize_antioxidants.py's
+# fine-tune and evaluation sizes on train_rl's general model, and the truth
+# run at the launcher's Q width
+FT_EPISODES = 15
+FT_BATCH, FT_CANDIDATES = 16, 32
+FT_TOL = 1e-4                   # card vs CPU fine-tune parameters, abs + rel
+N_TEST = 8                      # unseen molecules scored for Fig. 4
+VERIFY_ARGS = ["--hidden", "1024,512,128,32", "--workers", "4",
+               "--mols-per-worker", "4", "--max-candidates", "256",
+               "--episodes", "2", "--device", "cuda"]
+VERIFY_TIMEOUT_S = 300
+SHALLOW_HIDDEN = ((32,), (256, 64), (512, 128, 32))   # verify's default, the examples'
+FAULT_KEYS = ("n_faults_injected", "n_retries", "n_timeouts", "n_quarantined",
+              "n_chem_retries", "n_pipeline_restarts", "n_incidents")
 
 # LM slice: zamba2-1.2b's prefill shapes, and tests/test_kernels.py's
 # tolerances for the Pallas kernels (flash :20-21, :57; ssd :89-90, :102-103)
@@ -695,8 +731,10 @@ def _state_bytes(tr) -> dict[str, bytes]:
             for k, v in tr.state_dict().items()}
 
 
-def phase_train_rl() -> dict[str, int]:
-    """The RL launcher's path; returns the Q kernels' launches on it."""
+def phase_train_rl():
+    """The RL launcher's path; returns the Q kernels' launches on it, and
+    the trained trainer, its ``PropertyService`` and the predictor cache
+    for the pipeline phase."""
     import shutil
     import numpy as np
     import torch
@@ -859,7 +897,280 @@ def phase_train_rl() -> dict[str, int]:
           f" = {args.requests / wall:.2f} req/s | statuses "
           f"{st['status_counts']} | fused_qnet launches {served} = Q "
           f"dispatches {st['n_q_dispatches']}", flush=True)
-    return {"packed_qnet_stacked": stacked, "greedy": greedy, "serve": served}
+    return ({"packed_qnet_stacked": stacked, "greedy": greedy, "serve": served},
+            (tr, svc, work / "predictors"))
+
+
+def _agent_bytes(agent) -> list[bytes]:
+    return [t.cpu().numpy().tobytes()
+            for wb in agent.params + agent.target_params for t in wb]
+
+
+def _timed_fused_qnet(calls: list):
+    """A stand-in for ``core.agent``'s ``fused_qnet`` that records CUDA
+    events around each call (the launch itself is the real wrapper's)."""
+    import torch
+    from repro_torch.core import agent as agent_mod
+    real = agent_mod.fused_qnet
+
+    def timed(weights, x):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        q = real(weights, x)
+        ev[1].record()
+        calls.append((x.shape[0], ev))
+        return q
+    return agent_mod, real, timed
+
+
+def _verify_child(args: list[str]) -> subprocess.CompletedProcess:
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return subprocess.run([sys.executable, "-m", "repro_torch.launch.verify",
+                           *args], env=env, cwd=ROOT, capture_output=True,
+                          text=True, timeout=VERIFY_TIMEOUT_S)
+
+
+def _report_diff(a: dict, b: dict, skip) -> list[str]:
+    import numpy as np
+    keys = sorted((set(a) | set(b)) - set(skip))
+    return [k for k in keys if k not in a or k not in b
+            or np.asarray(a[k]).dtype != np.asarray(b[k]).dtype
+            or np.asarray(a[k]).tobytes() != np.asarray(b[k]).tobytes()]
+
+
+def phase_pipeline(tr, svc, cache_dir: Path) -> dict[str, int]:
+    """The paper's §3.5 pipeline and the truth run on train_rl's general
+    model; returns the Q kernels' launches on each path."""
+    import io
+    import re
+    import shutil
+    from contextlib import redirect_stdout
+    import numpy as np
+    import torch
+    from repro_torch.chem.oracle import oracle_bde, oracle_ip
+    from repro_torch.chem.smiles import canonical_smiles
+    from repro_torch.core import FilterCriteria, filter_molecules, fine_tune
+    from repro_torch.core.distributed import greedy_optimize
+    from repro_torch.data.datasets import antioxidant_dataset, train_test_split
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels.fused_qnet.ops import fused_qnet
+    from repro_torch.kernels.packed_qnet.ops import packed_qnet_stacked
+    from repro_torch.launch import verify
+
+    t_phase = time.perf_counter()
+    _, rcfg = _train_setup()
+    train, test = train_test_split(antioxidant_dataset(600))
+    env_cfg = tr.cfg.env
+    n = tr.cfg.n_workers * tr.cfg.mols_per_worker
+
+    # (a) fine-tune the worst unseen molecule, as optimize_antioxidants does
+    agent = tr.as_agent(epsilon=0.0)
+    recs = greedy_optimize(agent, list(train[:n]), svc, rcfg, env_cfg, seed=1)
+    trecs = greedy_optimize(agent, list(test[:N_TEST]), svc, rcfg, env_cfg,
+                            seed=2)
+    worst = int(np.argmin([r.reward for r in trecs]))
+    mol = test[worst]
+    general = tr.as_agent(epsilon=0.5)
+    width = "->".join(str(w.shape[0]) for w, _ in general.params) + "->1"
+    general_bytes = _agent_bytes(general)
+
+    def tune(device="cuda", **kw):
+        return fine_tune(general, mol, svc, rcfg, episodes=FT_EPISODES,
+                         env_cfg=env_cfg, train_batch_size=FT_BATCH,
+                         max_candidates=FT_CANDIDATES, device=device, **kw)
+
+    calls: list = []
+    agent_mod, real, timed = _timed_fused_qnet(calls)
+    fused_qnet.launches = 0
+    agent_mod.fused_qnet = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ft = tune()
+        torch.cuda.synchronize()
+        ft_s = time.perf_counter() - t0
+    finally:
+        agent_mod.fused_qnet = real
+    launches_ft = fused_qnet.launches
+    if launches_ft != ft.n_q_dispatches or launches_ft == 0:
+        fail(f"pipeline: fine_tune fused_qnet launches {launches_ft} != Q "
+             f"dispatches {ft.n_q_dispatches}")
+    kernel_ms = sum(ev[0].elapsed_time(ev[1]) for _, ev in calls)
+    rows = [r for r, _ in calls]
+    steps = ft.n_q_dispatches
+    print(f"pipeline: fine_tune at {width} on {canonical_smiles(mol)} (the "
+          f"worst of {N_TEST} unseen molecules): {FT_EPISODES} episodes in "
+          f"{ft_s:.3f} s | {steps} env steps, {steps / ft_s:.2f} env steps/s "
+          f"| fused_qnet {kernel_ms:.3f} ms in all, {kernel_ms / steps:.4f} ms "
+          f"a dispatch of {min(rows)}..{max(rows)} rows (CUDA events), "
+          f"{100 * kernel_ms / (1e3 * ft_s):.2f}% of the fine-tune | launches "
+          f"{launches_ft} = Q dispatches {ft.n_q_dispatches}", flush=True)
+    if _agent_bytes(tune()) != _agent_bytes(ft):
+        fail("pipeline: fine_tune rerun on the same seed gave other parameters")
+    if _agent_bytes(general) != general_bytes:
+        fail("pipeline: fine_tune changed the general agent's parameters")
+    explore = dict(epsilon_initial=1.0, epsilon_decay=1.0)
+    gpu, cpu = tune(**explore), tune(device="cpu", **explore)
+    err = 0.0
+    for (gw, gb), (cw, cb) in zip(gpu.params, cpu.params):
+        for g, c in ((gw, cw), (gb, cb)):
+            g, c = g.cpu(), c.cpu()
+            over = torch.abs(g - c) - (FT_TOL + FT_TOL * torch.abs(c))
+            if float(over.max()) > 0 or not bool(torch.isfinite(g).all()):
+                fail(f"pipeline: epsilon=1 fine_tune on the card vs the CPU: "
+                     f"max abs {float(torch.abs(g - c).max()):.3e} beyond "
+                     f"{FT_TOL} abs + {FT_TOL} rel")
+            err = max(err, float(torch.abs(g - c).max()))
+    print(f"pipeline: fine_tune rerun bit-identical; general agent unchanged "
+          f"bit for bit; epsilon=1 on the card vs the CPU: max abs {err:.3e} "
+          f"(<= {FT_TOL} abs + {FT_TOL} rel)", flush=True)
+    after = greedy_optimize(ft, [mol], svc, rcfg, env_cfg, seed=3)[0]
+    print(f"pipeline: greedy reward before {trecs[worst].reward:.3f} -> after "
+          f"fine-tune {after.reward:.3f}", flush=True)
+
+    # (b) the filter script over the greedy records, with oracle validation
+    results = filter_molecules(
+        [(r.molecule, r.bde, r.ip) for r in recs + trecs + [after]],
+        known=list(train[:n]) + list(test[:N_TEST]), criteria=FilterCriteria())
+    survivors = [r for r in results if r.passed]
+    print(f"pipeline: filter: {len(survivors)}/{len(results)} pass BDE<76 & "
+          f"IP>145 & SA<=3.5", flush=True)
+    for r in survivors:
+        dft_bde, dft_ip = oracle_bde(r.molecule), oracle_ip(r.molecule)
+        if dft_bde is None or not (math.isfinite(dft_bde) and math.isfinite(dft_ip)):
+            fail(f"pipeline: survivor {canonical_smiles(r.molecule)} has oracle "
+                 f"BDE {dft_bde}, IP {dft_ip}")
+        print(f"pipeline:   {canonical_smiles(r.molecule):44s} ML bde/ip "
+              f"{r.bde:5.1f}/{r.ip:5.1f}  DFT {dft_bde:5.1f}/{dft_ip:5.1f}  "
+              f"SA {r.sa:.2f}", flush=True)
+
+    # (c) the truth run at the launcher's Q width: straight, killed and
+    # resumed in fresh processes, and under a FaultPlan
+    work = ROOT / "build" / "chip_smoke_verify"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    packed_qnet_stacked.launches = 0
+    t0 = time.perf_counter()
+    straight, vtr = verify.run(verify.parser().parse_args(
+        VERIFY_ARGS + ["--out", str(work / "straight.npz")]))
+    straight_s = time.perf_counter() - t0
+    launches_verify = packed_qnet_stacked.launches
+    if launches_verify != vtr.n_q_dispatches or launches_verify == 0:
+        fail(f"pipeline: verify packed_qnet_stacked launches {launches_verify} "
+             f"!= fleet Q dispatches {vtr.n_q_dispatches}")
+    if int(straight["recompiles_after_warmup"]) != 0:
+        fail(f"pipeline: verify: {int(straight['recompiles_after_warmup'])} "
+             f"shape events after warmup")
+    print(f"pipeline: verify straight run in {straight_s:.3f} s | "
+          f"{int(straight['n_transitions'].sum())} transitions | "
+          f"{int(straight['warmup_compiles'])} warmup shape events, 0 after | "
+          f"losses {straight['losses'].tolist()} | launches {launches_verify} "
+          f"= fleet Q dispatches {vtr.n_q_dispatches}", flush=True)
+
+    ck = ["--ckpt-dir", str(work / "ckpt")]
+    t0 = time.perf_counter()
+    killed = _verify_child(VERIFY_ARGS + ck + ["--kill-at", "2", "--out",
+                                               str(work / "killed.npz")])
+    killed_s = time.perf_counter() - t0
+    if killed.returncode != -9:
+        fail(f"pipeline: verify --kill-at 2 exited {killed.returncode}, not by "
+             f"SIGKILL:\n{killed.stdout}{killed.stderr}")
+    t0 = time.perf_counter()
+    resumed = _verify_child(VERIFY_ARGS + ck + ["--resume", "--out",
+                                                str(work / "resumed.npz")])
+    resumed_s = time.perf_counter() - t0
+    if resumed.returncode != 0:
+        fail(f"pipeline: verify --resume exited {resumed.returncode}:\n"
+             f"{resumed.stdout}{resumed.stderr}")
+    with np.load(work / "resumed.npz") as z:
+        got = {k: z[k] for k in z.files}
+    diff = _report_diff(got, straight, ("meta", "warmup_compiles",
+                                        "recompiles_after_warmup"))
+    if diff or int(got["recompiles_after_warmup"]) != 0:
+        fail(f"pipeline: resumed report differs from the straight run on "
+             f"{diff}, or has shape events after warmup")
+    print(f"pipeline: verify --kill-at 2 died by SIGKILL in {killed_s:.3f} s; "
+          f"--resume in {resumed_s:.3f} s (fresh processes): report "
+          f"bit-identical to the straight run on all {len(straight) - 3} "
+          f"compared keys, 0 shape events after warmup", flush=True)
+
+    packed_qnet_stacked.launches = 0
+    t0 = time.perf_counter()
+    faulted, ftr = verify.run(verify.parser().parse_args(
+        VERIFY_ARGS + ["--faults", "predict,chem",
+                       "--out", str(work / "faulted.npz")]))
+    faulted_s = time.perf_counter() - t0
+    diff = _report_diff(faulted, straight, ("meta", "warmup_compiles",
+                                            "recompiles_after_warmup")
+                        + FAULT_KEYS)
+    counters = {k: int(faulted[k]) for k in FAULT_KEYS}
+    if diff or counters["n_faults_injected"] == 0 or counters["n_retries"] == 0:
+        fail(f"pipeline: faulted verify differs from the fault-free run on "
+             f"{diff} ({counters})")
+    if packed_qnet_stacked.launches != ftr.n_q_dispatches:
+        fail("pipeline: faulted verify launches != its fleet Q dispatches")
+    print(f"pipeline: verify --faults predict,chem in {faulted_s:.3f} s: "
+          f"bit-identical to the fault-free run | {counters}", flush=True)
+
+    # (d) shallower Q networks (the truth run's default width, the
+    # examples') through the five-layer Q kernels, padded with identity
+    # layers, against their plain versions; then the quickstart twin on
+    # train_rl's predictor cache
+    from repro_torch.core.agent import QNetwork
+    from repro_torch.kernels.fused_qnet.ref import qnet_ref
+    from repro_torch.kernels.packed_qnet.ref import packed_qnet_stacked_ref
+    g = torch.Generator().manual_seed(7)
+    x = torch.rand((300, 2049), generator=g)
+    bits = (torch.randint(0, 256, (4, 256, 256), generator=g)
+            & torch.randint(0, 256, (4, 256, 256), generator=g)).to(torch.uint8)
+    frac = torch.randint(0, 11, (4, 256), generator=g).float() / 10.0
+    errs = []
+    for hidden in SHALLOW_HIDDEN:
+        layers = [(w, 0.1 * torch.randn(b.shape, generator=g)) for w, b in
+                  QNetwork(hidden=hidden, generator=g, device="cpu").layers()]
+        stacked = [(torch.stack([w * (1 + 0.1 * i) for i in range(4)]),
+                    torch.stack([b] * 4)) for w, b in layers]
+        cuda = lambda ls: [(w.cuda(), b.cuda()) for w, b in ls]
+        errs.append(_check_close(
+            f"pipeline: fused_qnet at hidden {hidden}",
+            fused_qnet(cuda(layers), x.cuda()).cpu(), qnet_ref(x, layers), TOL))
+        errs.append(_check_close(
+            f"pipeline: packed_qnet_stacked at hidden {hidden}",
+            packed_qnet_stacked(cuda(stacked), bits.cuda(), frac.cuda()).cpu(),
+            packed_qnet_stacked_ref(bits, frac, stacked), TOL))
+    print(f"pipeline: fused_qnet (300 rows) and packed_qnet_stacked (4 x 256) "
+          f"at hidden {list(SHALLOW_HIDDEN)}, padded to five layers: max "
+          f"|kernel - plain| {max(errs):.3e} (<= {TOL} abs + {TOL} rel)",
+          flush=True)
+
+    packed_qnet_stacked.launches = 0
+    fused_qnet.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(out):
+        quickstart.main(["--device", "cuda"], cache_dir=str(cache_dir))
+    qs_s = time.perf_counter() - t0
+    text = out.getvalue()
+    print("\n".join("pipeline: quickstart | " + l for l in text.splitlines()),
+          flush=True)
+    m = re.search(r"acting: (\d+) Q dispatches for (\d+) fleet steps", text)
+    if m is None or m.group(1) != m.group(2) or \
+            packed_qnet_stacked.launches != int(m.group(1)) or \
+            fused_qnet.launches == 0 or "pass BDE<76" not in text:
+        fail(f"pipeline: quickstart acting line {m and m.group(0)}, "
+             f"packed_qnet_stacked launches {packed_qnet_stacked.launches}, "
+             f"fused_qnet launches {fused_qnet.launches}")
+    print(f"pipeline: quickstart in {qs_s:.3f} s | packed_qnet_stacked "
+          f"launches {packed_qnet_stacked.launches} = Q dispatches = fleet "
+          f"steps; fused_qnet launches {fused_qnet.launches} (greedy)",
+          flush=True)
+    print(f"pipeline: phase total {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"fused_qnet": launches_ft,
+            "packed_qnet_stacked": launches_verify,
+            "quickstart_packed": int(m.group(1)),
+            "quickstart_fused": fused_qnet.launches}
 
 
 def _row(name, source, replaces, shape, launches, max_abs, ms, plain_ms,
@@ -1424,12 +1735,20 @@ def main() -> None:
     launches = phase_train()
     for r in stacked_rows:
         r["launches"] = launches
-    rl = phase_train_rl()
+    rl, (tr, svc, cache_dir) = phase_train_rl()
     for r in rows:
         r["launches_greedy_eval"] = rl["greedy"]
         r["launches_serve_trained"] = rl["serve"]
     for r in stacked_rows:
         r["launches_train_rl"] = rl["packed_qnet_stacked"]
+    pipe = phase_pipeline(tr, svc, cache_dir)
+    del tr, svc
+    for r in rows:
+        r["launches_fine_tune"] = pipe["fused_qnet"]
+        r["launches_quickstart"] = pipe["quickstart_fused"]
+    for r in stacked_rows:
+        r["launches_verify"] = pipe["packed_qnet_stacked"]
+        r["launches_quickstart"] = pipe["quickstart_packed"]
     rows += stacked_rows
     rows += phase_packed_kernel(peak)
     lm_rows, path_ms = phase_lm_kernels(peak)

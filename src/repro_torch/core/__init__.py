@@ -1,10 +1,8 @@
 """Port of ``repro.core``: the agent, the host-side engine and the trainer.
 
-Exports what ``repro.core`` exports, where the port has it; still to come
-are ``fine_tune`` and ``filter_molecules`` / ``FilterCriteria`` (ROADMAP
-A4).  The names resolve on first use (PEP 562), so importing one module
-of the package, as the kernels' plain versions import ``packed_batch``,
-never pulls in the others.
+Exports what ``repro.core`` exports.  The names resolve on first use
+(PEP 562), so importing one module of the package, as the kernels' plain
+versions import ``packed_batch``, never pulls in the others.
 """
 
 import importlib
@@ -26,6 +24,8 @@ _EXPORTS = {
         "DistributedTrainer", "TrainerConfig", "ACTING_MODES",
         "LEARNER_MODES", "ROLLOUT_MODES", "greedy_optimize",
         "optimization_failure_rate"),
+    "repro_torch.core.finetune": ("fine_tune",),
+    "repro_torch.core.filter": ("filter_molecules", "FilterCriteria"),
 }
 _MODULE_OF = {name: mod for mod, names in _EXPORTS.items() for name in names}
 

@@ -62,6 +62,7 @@ from repro_torch.core.agent import (
     candidate_capacity_table, dqn_loss, flat, unflat,
 )
 from repro_torch.core.env import BatchedEnv, EnvConfig, StepRecord
+from repro_torch.core.jit_stats import note_shape_event
 from repro_torch.core.packed_batch import densify_batch, packed_nbytes
 from repro_torch.core.replay import FP_BYTES, ReplayBuffer
 from repro_torch.core.reward import RewardConfig
@@ -207,6 +208,7 @@ class _FleetView:
             else:
                 self._host = [self._alloc((W, cap, STATE_DIM), torch.float32)]
             self._q_out = self._alloc((W, cap), torch.float32)
+            note_shape_event("fleet_view")
 
     def warm_dispatch(self) -> None:
         """Run the current capacity once (builds the kernel at first use)."""

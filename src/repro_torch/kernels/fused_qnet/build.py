@@ -5,6 +5,7 @@ from __future__ import annotations
 import ctypes
 from pathlib import Path
 
+from repro_torch.core.jit_stats import note_shape_event
 from repro_torch.kernels.nvcc import NvccBuild
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_qnet.cu"
@@ -33,4 +34,5 @@ def load() -> ctypes.CDLL:
         lib.fused_qnet_error_string.argtypes = [ctypes.c_int]
         lib.fused_qnet_error_string.restype = ctypes.c_char_p
         _lib = lib
+        note_shape_event("kernel:fused_qnet")
     return _lib

@@ -1,5 +1,8 @@
 """``fused_qnet``: the five-layer MolDQN Q-network over candidate rows.
 
+A network of 2 to 4 layers runs through the same kernel, padded to five
+with identity layers that change no bit (``kernels/qnet_depth.py``).
+
 On a CUDA tensor it launches the hand-written kernel
 (``csrc/fused_qnet.cu``) on the current stream, or raises; on a CPU
 tensor it runs the plain version (``ref.qnet_ref``).  Rows need no
@@ -15,6 +18,7 @@ import torch
 
 from repro_torch.kernels.fused_qnet import build
 from repro_torch.kernels.fused_qnet.ref import qnet_ref
+from repro_torch.kernels.qnet_depth import pad_to_kernel_depth
 
 N_LAYERS = 5
 
@@ -53,7 +57,7 @@ def fused_qnet(weights: Sequence[tuple[torch.Tensor, torch.Tensor]],
         return qnet_ref(x, weights)
     if x.device.type != "cuda":
         raise ValueError(f"fused_qnet runs on cuda or cpu, got {x.device}")
-    weights = list(weights)
+    weights = pad_to_kernel_depth(weights)
     _check(x, weights)
     n = x.shape[0]
     q = torch.empty(n, device=x.device, dtype=torch.float32)

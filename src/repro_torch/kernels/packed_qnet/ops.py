@@ -9,7 +9,9 @@ one launch of the same tiles and give the same bits on the same rows.
 ``packed_qnet`` is the packed launch with W = 1.  A ragged C needs no
 padding: the kernel masks it.  Each wrapper counts its kernel launches
 (``packed_qnet_stacked.launches``), so a run can show that its Q
-dispatches went through the kernel.
+dispatches went through the kernel.  A network of 2 to 4 layers runs
+through the same kernel, padded to five with identity layers that change
+no bit (``kernels/qnet_depth.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from repro_torch.kernels.packed_qnet import build
 from repro_torch.kernels.packed_qnet.ref import (packed_qnet_ref,
                                                  packed_qnet_stacked_ref,
                                                  stacked_qnet_ref)
+from repro_torch.kernels.qnet_depth import pad_to_kernel_depth
 
 N_LAYERS = 5
 
@@ -93,7 +96,7 @@ def packed_qnet_stacked(weights: Weights, bits: torch.Tensor,
     (MSB-first planes), frac f32 ``[W, C]`` -> q ``[W, C]``; in = 8 n_bytes + 1."""
     if _device(bits) == "cpu":
         return packed_qnet_stacked_ref(bits, frac, weights)
-    weights = list(weights)
+    weights = pad_to_kernel_depth(weights)
     _check_rows(bits, "bits", torch.uint8, 3)
     _check_rows(frac, "frac", torch.float32, 2)
     n_workers, c, n_bytes = bits.shape
@@ -120,7 +123,8 @@ def packed_qnet(weights: Weights, bits: torch.Tensor,
     if tuple(frac.shape) != (n,) or frac.device != bits.device:
         raise ValueError(f"frac {tuple(frac.shape)} on {frac.device} does not "
                          f"match bits {tuple(bits.shape)} on {bits.device}")
-    stacked = [(w.unsqueeze(0), b.unsqueeze(0)) for w, b in weights]
+    stacked = pad_to_kernel_depth([(w.unsqueeze(0), b.unsqueeze(0))
+                                   for w, b in weights])
     _check_weights(stacked, 1, 8 * n_bytes + 1, bits.device)
     q = _launch("packed_qnet_stacked_forward", [bits.data_ptr(), frac.data_ptr()],
                 stacked, 1, n, n_bytes, bits.device)
@@ -133,7 +137,7 @@ def dense_qnet_stacked(weights: Weights, x: torch.Tensor) -> torch.Tensor:
     kernel with its dense row loader."""
     if _device(x) == "cpu":
         return stacked_qnet_ref(x, weights)
-    weights = list(weights)
+    weights = pad_to_kernel_depth(weights)
     _check_rows(x, "x", torch.float32, 3)
     n_workers, c, width = x.shape
     _check_weights(weights, n_workers, width, x.device)

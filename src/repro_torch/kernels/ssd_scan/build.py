@@ -5,6 +5,7 @@ from __future__ import annotations
 import ctypes
 from pathlib import Path
 
+from repro_torch.core.jit_stats import note_shape_event
 from repro_torch.kernels.nvcc import NvccBuild
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
@@ -33,4 +34,5 @@ def load() -> ctypes.CDLL:
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
         _lib = lib
+        note_shape_event("kernel:ssd_scan")
     return _lib

@@ -46,6 +46,7 @@ from repro_torch.faults import FaultError, FaultTimeout, TransientFault
 
 from repro_torch.chem.conformer import CONFORMER_FEATURE_DIM, conformer_features, has_valid_conformer
 from repro_torch.chem.molecule import ATOM_FEATURE_DIM, MAX_BOND_ORDER, Molecule, to_graph_arrays
+from repro_torch.core.jit_stats import note_shape_event
 from repro_torch.device import resolve_device
 from repro_torch.predictors import gnn, ip_net
 from repro_torch.predictors.cache import LRUCache
@@ -250,6 +251,7 @@ class PropertyService:
             buf = torch.zeros((padded, self._row), dtype=torch.float32,
                               pin_memory=self.device.type == "cuda")
             self._staging[padded] = buf
+            note_shape_event("predictor_bucket")
         return buf
 
     def _run_models(self, batch: dict[str, np.ndarray]) -> tuple[np.ndarray, np.ndarray]:

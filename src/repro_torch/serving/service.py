@@ -7,7 +7,8 @@ the service runs on ``device`` (the GPU unless the caller names another),
 and every dispatch goes through the hand-written ``fused_qnet`` kernel on
 the card.  PyTorch runs eagerly, so there is nothing to recompile; the
 port's counterpart of the reference's 0-recompile gate is that the
-kernel's launches equal the service's Q dispatches.
+kernel's launches equal the service's Q dispatches, and that the dispatch
+buffer grows no rung after warmup (a shape event, ``core.jit_stats``).
 
 The trained policy is a generalist (the paper's premise: optimize NEW
 molecules without retraining), so serving is a scheduling problem, not a
@@ -67,6 +68,7 @@ from repro_torch.chem.smiles import canonical_smiles, from_smiles
 from repro_torch.core.agent import (QNetwork, candidate_capacity,
                                     candidate_capacity_table)
 from repro_torch.core.faults import FaultError, Incident, TransientFault
+from repro_torch.core.jit_stats import note_shape_event
 from repro_torch.core.rollout import STATE_DIM, EnvConfig, RolloutEngine, Slot
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_qnet.ops import fused_qnet
@@ -156,6 +158,7 @@ class _ServePolicy:
         if cap > self._cap:
             self._cap = cap
             self._buf = np.zeros((self.n_workers, cap, STATE_DIM), np.float32)
+            note_shape_event("serve_dispatch")
 
     def warm_dispatch(self) -> None:
         """Run the current capacity's shape once off the serving path

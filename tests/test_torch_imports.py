@@ -111,6 +111,36 @@ def test_port_has_the_launcher_slice():
     assert not stubs, stubs
 
 
+def test_port_has_the_pipeline_slice():
+    """The paper's §3.5 pipeline and the truth run: fine-tune, filter, the
+    shape-event counter, the verify runner and the example twins, all in
+    the AST walk below and importable without JAX or ``repro``."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for rel in ("src/repro_torch/core/finetune.py",
+                "src/repro_torch/core/filter.py",
+                "src/repro_torch/core/jit_stats.py",
+                "src/repro_torch/launch/verify.py",
+                "src/repro_torch/examples/__init__.py",
+                "src/repro_torch/examples/quickstart.py",
+                "src/repro_torch/examples/optimize_antioxidants.py",
+                "src/repro_torch/examples/serve_predictor.py"):
+        assert rel in names
+    code = ("import sys, repro_torch.launch.verify, repro_torch.core.finetune, "
+            "repro_torch.core.filter, repro_torch.examples.quickstart, "
+            "repro_torch.examples.optimize_antioxidants, "
+            "repro_torch.examples.serve_predictor; "
+            "from repro_torch.core import fine_tune, filter_molecules, FilterCriteria; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
+            "assert not bad, bad; print('clean')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+    stubs = [p for p in PORT_FILES if "ROADMAP A4" in p.read_text()]
+    assert not stubs, stubs
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[p.relative_to(ROOT).as_posix() for p in PORT_FILES])
 def test_no_jax_or_repro_import(path):
