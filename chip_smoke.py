@@ -105,6 +105,30 @@ Phases, each of which exits non-zero on failure:
              each kernel's share; then ``python -m repro_torch.launch.serve``
              at its defaults must exit 0.
 
+10. lm_train - the LM training step, after lm has freed its memory.  On
+             the card a ``use_pallas`` loss on parameters that require grad
+             raises in both kernels (reduced stablelm-1.6b: attention;
+             reduced mamba2-2.7b: the scan) with no launch, and the same
+             forward under ``torch.no_grad()`` launches.  The reduced
+             stablelm-1.6b, zamba2-1.2b and mamba2-2.7b in f32 on the card
+             and on the CPU from the same parameters and SMILES batch:
+             ``loss_fn`` within 1e-5 relative and every gradient leaf within
+             1e-4 of that leaf's max |g|; one ``microbatches = 2`` train
+             step the same way (its loss, and its first moments, which hold
+             the clipped gradient).  zamba2-1.2b at full width, bf16, remat
+             on, B = 2, S = 4096 through ``make_train_step``, with
+             ``torch.use_deterministic_algorithms`` on for the phase: a warm
+             step and its rerun from the same state bit-identical, then 3
+             timed steps (CUDA events; tokens/s, peak memory, a
+             ``torch.profiler`` table of one step); the losses finite, every
+             leaf's first moment finite and nonzero, every leaf changed but
+             the bf16 norm scales of 1.0 (an update of lr = 1e-4 is below
+             half their ulp), and 0 launches of every kernel.  Then
+             ``python -m repro_torch.launch.train --mode lm`` at its defaults
+             (stablelm-1.6b at full width, bf16, B 8, S 64, 50 steps) must
+             exit 0 with a finite final loss below its first, and ``python
+             -m repro_torch.examples.backbone_lm`` must exit 0.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package ``repro``.
@@ -216,6 +240,12 @@ LM_PREFILL = (2, 4096)          # B, S: the train_4k length
 LM_ROUTE = (1, 512)
 LM_DECODE = 256
 PACKED_ROWS = (2048, 4096)
+LM_TRAIN_ARCHS = ("stablelm-1.6b", "zamba2-1.2b", "mamba2-2.7b")  # reduced, card vs CPU
+LM_TRAIN = (2, 4096)            # B, S of the full-width steps: train_4k's length
+LM_TRAIN_STEPS = 3
+LM_LOSS_RTOL = 1e-5             # card vs CPU, f32
+LM_GRAD_TOL = 1e-4              # of each gradient leaf's max |g|
+LM_TRAIN_TIMEOUT_S = 600
 
 # dense peaks by card (NVIDIA data sheets): f32 FMA FLOP/s, HBM bytes/s,
 # bf16 tensor-core FLOP/s
@@ -1466,7 +1496,7 @@ def phase_lm_kernels(peak) -> tuple[list[dict], dict]:
     return rows, path_ms
 
 
-def _profile_top(fn, top: int = 12) -> None:
+def _profile_top(fn, top: int = 12, what: str = "lm: torch.profiler over one prefill") -> None:
     """Device time by kernel over one call of ``fn``, from torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1476,8 +1506,11 @@ def _profile_top(fn, top: int = 12) -> None:
     events = [e for e in prof.key_averages()
               if str(getattr(e, "device_type", "")).endswith("CUDA")]
     total_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
-    print(f"lm: torch.profiler over one prefill: {total_us / 1e3:.2f} ms of "
-          f"device kernel time in {len(events)} kernel names", flush=True)
+    gemm_us = sum(e.self_device_time_total for e in events
+                  if "gemm" in e.key.lower() or e.key.startswith("nvjet"))
+    print(f"{what}: {total_us / 1e3:.2f} ms of "
+          f"device kernel time in {len(events)} kernel names, of which cuBLAS "
+          f"GEMMs ('gemm' or 'nvjet' names) {gemm_us / 1e3:.2f} ms", flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  "
               f"{e.key[:100]}", flush=True)
@@ -1647,6 +1680,257 @@ def phase_lm(path_ms) -> dict:
     return out
 
 
+def _lm_batch(vocab: int, B: int, S: int, device: str, seed: int = 0) -> dict:
+    """Random tokens [1, vocab), next-token labels, the last position masked."""
+    import numpy as np
+    import torch
+    tokens = np.random.default_rng(seed).integers(1, vocab, (B, S))
+    labels = np.concatenate([tokens[:, 1:], np.zeros((B, 1), tokens.dtype)], 1)
+    mask = (labels != 0).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in (("tokens", tokens), ("labels", labels), ("mask", mask))}
+
+
+def _lm_train_guard() -> None:
+    """On the card a use_pallas loss on parameters that require grad raises
+    in the kernel's wrapper with no launch; under no_grad it launches."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.checkpoint.checkpoint import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.launch.steps import loss_and_grads, with_leaves
+    from repro_torch.models import forward_train, init_params
+
+    for arch, kernel in (("stablelm-1.6b", flash_attention), ("mamba2-2.7b", ssd_scan)):
+        cfg = replace(get_config(arch).reduced(), use_pallas=True)
+        params = init_params(cfg, 0, device="cuda")
+        batch = _lm_batch(cfg.vocab, 2, 64, "cuda")
+        counts, before = (flash_attention.launches, ssd_scan.launches), kernel.launches
+        try:
+            loss_and_grads(params, cfg, batch)
+        except RuntimeError as e:
+            if f"{kernel.__name__} is forward only" not in str(e):
+                raise
+        else:
+            fail(f"lm_train: a use_pallas loss of {arch} backpropagated through "
+                 f"{kernel.__name__}")
+        if (flash_attention.launches, ssd_scan.launches) != counts:
+            fail(f"lm_train: the refused {arch} loss launched a kernel")
+        trainable = with_leaves(params, [t.detach().requires_grad_()
+                                         for t in tree_leaves(params)])
+        with torch.no_grad():
+            forward_train(trainable, cfg, batch)
+        torch.cuda.synchronize()
+        if kernel.launches == before:
+            fail(f"lm_train: the no_grad {arch} forward did not launch "
+                 f"{kernel.__name__}")
+        print(f"lm_train: guard: {arch} use_pallas loss with grad raised in "
+              f"{kernel.__name__} before any launch; under no_grad it launched "
+              f"{kernel.launches - before} time(s)", flush=True)
+
+
+def _lm_train_card_vs_cpu() -> None:
+    """The reduced configs in f32 on the card and on the CPU, from the same
+    parameters and SMILES batch: loss_fn, every gradient leaf, and one
+    microbatches = 2 train step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.checkpoint.checkpoint import tree_leaves
+    from repro_torch.launch.steps import loss_and_grads, make_train_step, with_leaves
+    from repro_torch.launch.train import lm_batches
+    from repro_torch.models import init_params
+
+    batch = next(lm_batches(8, 64))
+    for arch in LM_TRAIN_ARCHS:
+        cfg = get_config(arch).reduced()
+        cpu = init_params(cfg, 0, device="cpu")
+        gpu = with_leaves(cpu, [t.cuda() for t in tree_leaves(cpu)])
+        worst_loss, worst_leaf = 0.0, 0.0
+        lc, gc = loss_and_grads(cpu, cfg, batch)
+        lg, gg = loss_and_grads(gpu, cfg, batch)
+        step, opt = make_train_step(cfg, microbatches=2)
+        _, sc, mc = step(cpu, opt.init(cpu), batch)
+        _, sg, mg = step(gpu, opt.init(gpu), batch)
+        for tag, (l_cpu, l_gpu, leaves_cpu, leaves_gpu) in (
+                ("loss_fn", (lc, lg, gc, gg)),
+                ("microbatches=2 step", (mc, mg, sc.mu, sg.mu))):
+            rel = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
+            if not rel <= LM_LOSS_RTOL:
+                fail(f"lm_train: {arch} {tag} loss on the card {float(l_gpu)!r} vs "
+                     f"the CPU {float(l_cpu)!r}: {rel:.3e} > {LM_LOSS_RTOL}")
+            for i, (a, b) in enumerate(zip(leaves_cpu, leaves_gpu)):
+                scale = float(a.abs().max())
+                err = float((b.cpu() - a).abs().max())
+                if not err <= LM_GRAD_TOL * scale:
+                    fail(f"lm_train: {arch} {tag} gradient leaf {i} {tuple(a.shape)}: "
+                         f"card vs CPU {err:.3e} > {LM_GRAD_TOL} x {scale:.3e}")
+                worst_leaf = max(worst_leaf, err / max(scale, 1e-30))
+            worst_loss = max(worst_loss, rel)
+        print(f"lm_train: {arch} reduced, f32, B 8 S 64 (SMILES): card vs CPU "
+              f"loss {float(lg):.6f} vs {float(lc):.6f}, worst loss rel "
+              f"{worst_loss:.3e} (<= {LM_LOSS_RTOL}), worst gradient leaf "
+              f"{worst_leaf:.3e} of its max (<= {LM_GRAD_TOL}), over loss_fn "
+              f"and a microbatches=2 step", flush=True)
+
+
+def _lm_train_full_width() -> dict:
+    """zamba2-1.2b at full width, bf16, remat, through make_train_step.
+    Returns each kernel's launches over the timed steps."""
+    import warnings
+
+    import torch
+    from repro_torch.checkpoint.checkpoint import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.fused_qnet.ops import fused_qnet
+    from repro_torch.kernels.packed_qnet.ops import packed_qnet, packed_qnet_stacked
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import count_params, init_params
+    from repro_torch.optim.adam import apply_updates
+
+    kernels = (fused_qnet, packed_qnet_stacked, packed_qnet, flash_attention, ssd_scan)
+    cfg = get_config(LM_ARCH)
+    if not cfg.remat or cfg.use_pallas:
+        fail(f"lm_train: {LM_ARCH} should train with remat on and use_pallas off")
+    B, S = LM_TRAIN
+    params = init_params(cfg, 0, device="cuda")
+    step, opt = make_train_step(cfg)
+    state = opt.init(params)
+    batch = _lm_batch(cfg.vocab, B, S, "cuda")
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p1, s1, l1 = step(params, state, batch)          # warm
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            p1b, s1b, l1b = step(params, state, batch)       # its rerun
+            torch.cuda.synchronize()
+            same = torch.equal(l1, l1b) and all(
+                torch.equal(a, b) for a, b in zip(
+                    tree_leaves(p1) + s1.mu + s1.nu,
+                    tree_leaves(p1b) + s1b.mu + s1b.nu))
+            if not same:
+                diffs = [(i, float((a.float() - b.float()).abs().max()))
+                         for i, (a, b) in enumerate(zip(tree_leaves(p1), tree_leaves(p1b)))
+                         if not torch.equal(a, b)]
+                fail(f"lm_train: the rerun of a {LM_ARCH} train step is not "
+                     f"bit-identical: loss {float(l1)!r} vs {float(l1b)!r}, "
+                     f"parameter leaves (index, max abs) {diffs[:8]}")
+            del state, p1b, s1b, l1b
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()     # from here: one training loop
+            firsts = [float(m.abs().max()) for m in s1.mu]
+            if not all(math.isfinite(m) and m > 0 for m in firsts):
+                fail(f"lm_train: a {LM_ARCH} leaf got no finite nonzero gradient: "
+                     f"{firsts}")
+            for k in kernels:
+                k.launches = 0
+            cur, st, losses, ms = p1, s1, [float(l1)], []
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            for _ in range(LM_TRAIN_STEPS):
+                start.record()
+                cur, st, loss = step(cur, st, batch)
+                end.record()
+                torch.cuda.synchronize()
+                ms.append(start.elapsed_time(end))
+                losses.append(float(loss))
+            launches = {k.__name__: k.launches for k in kernels}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            messages = sorted({str(w.message).split("\n")[0][:160] for w in caught})
+    finally:
+        torch.use_deterministic_algorithms(was_deterministic)
+    if any(launches.values()):
+        fail(f"lm_train: {LM_ARCH} train steps launched kernels: {launches}")
+    if not all(math.isfinite(l) for l in losses):
+        fail(f"lm_train: {LM_ARCH} train losses are not finite: {losses}")
+    unchanged = [i for i, (a, b) in enumerate(zip(tree_leaves(params), tree_leaves(cur)))
+                 if torch.equal(a, b)]
+    norms = [i for i in unchanged if tree_leaves(params)[i].dtype == torch.bfloat16
+             and bool((tree_leaves(params)[i].abs() == 1).all())]
+    if unchanged != norms:
+        fail(f"lm_train: {LM_ARCH} leaves {sorted(set(unchanged) - set(norms))} did "
+             f"not change in {1 + LM_TRAIN_STEPS} steps")
+    print(f"lm_train: {LM_ARCH} {count_params(cfg):,} parameters, bf16, remat, "
+          f"B={B} S={S} through make_train_step: warm step {warm_s:.2f} s "
+          f"(host clock), rerun bit-identical (deterministic algorithms on); "
+          f"{LM_TRAIN_STEPS} steps {', '.join(f'{m:.2f}' for m in ms)} ms "
+          f"(CUDA events) = {B * S / (min(ms) / 1e3):.0f} tokens/s at the best, "
+          f"{B * S * LM_TRAIN_STEPS / (sum(ms) / 1e3):.0f} over the {LM_TRAIN_STEPS}; "
+          f"losses {', '.join(f'{l:.4f}' for l in losses)}; peak memory "
+          f"{peak:.2f} GiB over the timed steps (the initial parameters kept for "
+          f"the check included); launches {launches}; {len(norms)} leaves unchanged, "
+          f"all bf16 norm scales of 1.0", flush=True)
+    for m in messages:
+        print(f"lm_train: warning under deterministic algorithms: {m}", flush=True)
+    # the step's two halves apart: loss and gradients, then Adam and apply
+    torch.cuda.reset_peak_memory_stats()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    marks[0].record()
+    _, grads = loss_and_grads(cur, cfg, batch)
+    marks[1].record()
+    leaves = tree_leaves(cur)
+    apply_updates(leaves, opt.update(grads, st, leaves)[0])
+    marks[2].record()
+    torch.cuda.synchronize()
+    print(f"lm_train: one {LM_ARCH} step split: loss and gradients "
+          f"{marks[0].elapsed_time(marks[1]):.2f} ms, Adam (clip, moments) and "
+          f"apply {marks[1].elapsed_time(marks[2]):.2f} ms (CUDA events); peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB with the "
+          f"parameters, moments and initial parameters resident", flush=True)
+    del grads, leaves
+    _profile_top(lambda: step(cur, st, batch), top=15,
+                 what=f"lm_train: torch.profiler over one {LM_ARCH} train step")
+    del params, p1, s1, cur, st
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _run_module(tag: str, args: list[str]) -> tuple[list[str], float]:
+    """``python -m <args>`` from the checkout; its stdout lines and wall s."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", *args], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=LM_TRAIN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"{tag}: python -m {' '.join(args)} exited {res.returncode}:\n"
+             f"{res.stderr[-2000:]}")
+    return res.stdout.strip().splitlines(), wall
+
+
+def phase_lm_train() -> dict:
+    """The LM training step: the gradient guard, card vs CPU, zamba2-1.2b
+    at full width, the launcher at its defaults and the example twin.
+    Returns each kernel's launches over the full-width steps."""
+    _lm_train_guard()
+    _lm_train_card_vs_cpu()
+    launches = _lm_train_full_width()
+
+    lines, wall = _run_module("lm_train", ["repro_torch.launch.train", "--mode", "lm"])
+    steps = [float(l.split("loss ")[1].split()[0]) for l in lines if l.startswith("[step")]
+    final = json.loads(lines[-1])
+    if not (steps and math.isfinite(final["final_loss"]) and final["final_loss"] < steps[0]
+            and final["steps"] == 50):
+        fail(f"lm_train: the launcher's loss did not fall: {lines}")
+    print(f"lm_train: python -m repro_torch.launch.train --mode lm (stablelm-1.6b, "
+          f"full width, bf16, B 8, S 64, 50 steps): {wall:.1f} s wall with start-up; "
+          f"loss {steps[0]:.4f} at step 1 -> {final['final_loss']:.4f} | "
+          + " | ".join(lines), flush=True)
+    lines, wall = _run_module("lm_train", ["repro_torch.examples.backbone_lm"])
+    print(f"lm_train: python -m repro_torch.examples.backbone_lm: {wall:.1f} s wall; "
+          f"{lines[-1]}", flush=True)
+    return launches
+
+
 def compare(src: Path) -> None:
     """``--compare SRC``: the port at SRC (the ``src`` of another checkout)
     on the seeded inputs of the kernels phases.  Prints one JSON line with
@@ -1756,6 +2040,9 @@ def main() -> None:
     for r in lm_rows:
         r["launches"] = launches[(r["name"], r["arch"])]
     rows += lm_rows
+    launches = phase_lm_train()
+    for r in rows:
+        r["launches_lm_train"] = launches[r["name"]]
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s on {card}", flush=True)
     print(json.dumps({"card": card, "kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

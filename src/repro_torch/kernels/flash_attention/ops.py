@@ -4,7 +4,10 @@ prefix-LM masks, in the model layout ``[B, S, H, D]``.
 
 On a CUDA tensor it launches the hand-written kernel
 (``csrc/flash_attention.cu``) on the current stream, or raises; on a CPU
-tensor it runs the plain version (``ref.attention_ref``).  The kernel reads
+tensor it runs the plain version (``ref.attention_ref``).  Forward only, as
+the reference's Pallas kernel, which has no ``custom_vjp``: with grad
+enabled and an input that requires grad it raises on either device before
+any launch (``refuse_grad``), so training runs with ``use_pallas=False``.  The kernel reads
 q, k and v by strides, so there are no transposes on the card.  Inputs the
 kernel does not take raise on either device.  ``flash_attention.launches``
 counts the kernel launches, so a run can show that its attention went
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.flash_attention import build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -65,6 +69,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     prefix_len: int = 0) -> torch.Tensor:
     """q ``[B, Sq, H, D]``, k and v ``[B, Sk, K, D]`` -> ``[B, Sq, H, D]`` in
     q's type, scale ``D^-0.5``, kv head ``h // (H // K)``."""
+    refuse_grad("flash_attention", q, k, v)
     _check(q, k, v, window, prefix_len)
     if q.device.type == "cpu":
         return attention_ref(q.transpose(1, 2), k.transpose(1, 2),

@@ -4,7 +4,11 @@ chunked scan, ``(y, final_state)``.
 On a CUDA tensor it launches the hand-written kernel (``csrc/ssd_scan.cu``:
 chunk summaries, a pass over chunk states, then the chunks' outputs, three
 launches) on the current stream, or raises; on a CPU tensor it runs the
-plain version (``ref.ssd_ref``, the definitional recurrence).  The kernel
+plain version (``ref.ssd_ref``, the definitional recurrence).  Forward
+only, as the reference's Pallas kernel, which has no ``custom_vjp``: with
+grad enabled and an input that requires grad it raises on either device
+before any launch (``refuse_grad``), so training runs with
+``use_pallas=False``.  The kernel
 reads x, B and C by strides, so the model's views into its conv output go
 in as they are; dt and A go in as f32 (a bf16 dt is widened, exactly).
 Inputs the kernel does not take raise on either device.
@@ -16,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.ssd_scan import build
 from repro_torch.kernels.ssd_scan.ref import ssd_ref
 
@@ -64,6 +69,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              chunk: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
     """x ``[B, L, H, P]``, dt ``[B, L, H]``, A ``[H]``, B/C ``[B, L, G, N]``
     -> (y ``[B, L, H, P]``, final state ``[B, H, P, N]``), both in x's type."""
+    refuse_grad("ssd_scan", x, dt, A, B_, C_)
     q = _check(x, dt, A, B_, C_, chunk)
     if x.device.type == "cpu":
         return ssd_ref(x, dt, A, B_, C_)

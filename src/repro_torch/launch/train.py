@@ -1,29 +1,39 @@
-"""Port of ``repro.launch.train``: the training launcher, ``--mode rl``.
+"""Port of ``repro.launch.train``: the training launcher.
 
-Distributed DA-MolDQN over an antioxidant dataset on one GPU: the learned
-BDE and IP predictors are trained or loaded (``ensure_trained``) and serve
-every property batch through ``PropertyService``; ``DistributedTrainer``
-acts through the ``packed_qnet_stacked`` kernel (one launch per fleet env
-step) and checkpoints its full state every ``--ckpt-every`` episodes into a
-``CheckpointManager``; ``--resume`` continues bit for bit; the general
-model is scored by ``greedy_optimize`` (its Q dispatches through
-``fused_qnet``) and the paper's OFR (Eq. 2).
+Two modes, as the reference's:
+
+* ``--mode rl`` (default; the paper): distributed DA-MolDQN over an
+  antioxidant dataset on one GPU.  The learned BDE and IP predictors are
+  trained or loaded (``ensure_trained``) and serve every property batch
+  through ``PropertyService``; ``DistributedTrainer`` acts through the
+  ``packed_qnet_stacked`` kernel (one launch per fleet env step) and
+  checkpoints its full state every ``--ckpt-every`` episodes into a
+  ``CheckpointManager``; ``--resume`` continues bit for bit; the general
+  model is scored by ``greedy_optimize`` (its Q dispatches through
+  ``fused_qnet``) and the paper's OFR (Eq. 2).
+
+* ``--mode lm --arch <id>``: train a model-zoo backbone (dense, ssm or
+  hybrid; ``--reduced`` for the CPU-sized variant) as a SMILES language
+  model with ``make_train_step``, on the reference's corpus (canonical
+  SMILES of ``antioxidant_dataset(256)``) and batches.  It trains through
+  the plain routes, as the reference does: the LM kernels are forward only.
 
     PYTHONPATH=src python -m repro_torch.launch.train --mode rl --episodes 40
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --episodes 2 --workers 2 --mols-per-worker 2
+    PYTHONPATH=src python -m repro_torch.launch.train --mode lm
+    PYTHONPATH=src python -m repro_torch.launch.train --mode lm --reduced \
+        --steps 20 --device cpu
 
 Everything runs on ``cuda`` unless ``--device cpu`` is passed.  The
 predictors' cache defaults to ``.cache/predictors_torch`` and the
 checkpoints to ``.cache/rl_ckpt_torch``, apart from the reference's.
-``--mode lm`` (the LM backbone's training step) is not ported yet
-(ROADMAP A6a) and exits non-zero.
 """
 
 from __future__ import annotations
 
 import argparse
-import sys
+import json
 import time
 
 from repro_torch.checkpoint import CheckpointManager
@@ -71,7 +81,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs every kernel's plain "
                          "PyTorch version")
-    # lm args (the LM mode is ROADMAP A6a; kept so the flags match)
+    # lm args
     ap.add_argument("--arch", default="stablelm-1.6b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=50)
@@ -82,10 +92,10 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = parser().parse_args(argv)
-    if args.mode == "lm":
-        sys.exit("repro_torch.launch.train: --mode lm (the LM training step) "
-                 "is not ported yet; it is ROADMAP A6a")
-    train_rl(args)
+    if args.mode == "rl":
+        train_rl(args)
+    else:
+        train_lm(args)
 
 
 def train_rl(args) -> None:
@@ -147,6 +157,49 @@ def train_rl(args) -> None:
     recs = greedy_optimize(agent, list(train[:n_mols]), service, rcfg, cfg.env)
     print(f"train-set OFR: {optimization_failure_rate(recs):.3f}")
     print(f"cache hit rate: {service.cache.hit_rate:.3f}")
+
+
+def lm_batches(batch: int, seq: int):
+    """The reference launcher's batches: canonical SMILES of
+    ``antioxidant_dataset(256)``, tokenized, seed 0."""
+    from repro_torch.chem.smiles import canonical_smiles
+    from repro_torch.data.datasets import antioxidant_dataset
+    from repro_torch.data.pipeline import lm_batches_from_smiles
+    from repro_torch.data.tokenizer import SmilesTokenizer
+    smiles = [canonical_smiles(m) for m in antioxidant_dataset(256)]
+    return lm_batches_from_smiles(smiles, SmilesTokenizer(), batch, seq)
+
+
+def lm_loop(cfg, params, batches, steps: int, *, log_every: int = 10):
+    """``steps`` train steps of ``make_train_step(cfg)`` from ``params``;
+    prints ``[step N] loss`` at step 1 and every ``log_every`` steps, and
+    returns the losses as floats."""
+    from repro_torch.launch.steps import make_train_step
+
+    step, opt = make_train_step(cfg)
+    opt_state = opt.init(params)
+    losses = []
+    t0 = time.time()
+    for i, batch in zip(range(steps), batches):
+        params, opt_state, loss = step(params, opt_state, batch)
+        losses.append(float(loss))
+        if i == 0 or (i + 1) % log_every == 0:
+            print(f"[step {i+1:4d}] loss {losses[-1]:.4f} ({time.time()-t0:.0f}s)",
+                  flush=True)
+    return losses
+
+
+def train_lm(args) -> None:
+    """The moe, encdec and vlm families raise in ``init_params`` (ROADMAP A7)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    params = init_params(cfg, 0, device=args.device)
+    losses = lm_loop(cfg, params, lm_batches(args.batch, args.seq), args.steps)
+    print(json.dumps({"final_loss": losses[-1], "steps": args.steps}))
 
 
 if __name__ == "__main__":

@@ -6,20 +6,22 @@ families, as plain functions over parameter trees.
     params_from_numpy(tree, device=)         the reference's params, bit for bit
     params_to_numpy(params)                  and back
     forward_train(params, cfg, batch)        -> (logits, aux)
+    loss_fn(params, cfg, batch)              -> masked LM cross-entropy
     init_cache(cfg, batch, seq_len, device=) -> decode cache
     serve_step(params, cfg, cache, tokens)   -> (logits, cache)
 
 With ``cfg.use_pallas`` the full-sequence forward runs attention and the
-SSD scan through the hand-written CUDA kernels.  ``loss_fn`` comes with the
-training slice; the moe, encdec and vlm families with ROADMAP A7.
+SSD scan through the hand-written CUDA kernels, which are forward only
+(``loss_fn`` trains through the plain routes, as the reference does).  The
+moe, encdec and vlm families come with ROADMAP A7.
 """
 
 from repro_torch.models.model import (
-    init_params, forward_train, init_cache, serve_step, count_params,
+    init_params, forward_train, loss_fn, init_cache, serve_step, count_params,
     params_from_numpy, params_to_numpy,
 )
 
 __all__ = [
-    "init_params", "forward_train", "init_cache", "serve_step",
+    "init_params", "forward_train", "loss_fn", "init_cache", "serve_step",
     "count_params", "params_from_numpy", "params_to_numpy",
 ]

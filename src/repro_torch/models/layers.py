@@ -1,11 +1,12 @@
 """Port of ``repro.models.layers``: norms, RoPE, attention (GQA/MQA,
 causal / sliding-window / prefix-LM), dense MLPs.
 
-Everything is a plain function over explicit parameter dicts, forward
-only (the training slice brings gradients).  Attention has two routes, as
-in the reference: the plain blocked PyTorch path, and with ``use_pallas``
-and no explicit mask the hand-written CUDA ``flash_attention`` kernel
-(``kernels/flash_attention``; on CPU tensors its plain version).
+Everything is a plain function over explicit parameter dicts;
+gradients come from torch autograd.  Attention has two routes, as in the
+reference: the plain blocked PyTorch path, and with ``use_pallas`` and no
+explicit mask the hand-written CUDA ``flash_attention`` kernel
+(``kernels/flash_attention``; on CPU tensors its plain version), which is
+forward only and refuses autograd.
 
 Parameter inits take a ``torch.Generator`` on the target device, draw
 f32 normals there and cast, so a full-width model never passes through
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 # ------------------------------------------------------------------ #
@@ -34,6 +36,15 @@ def dense_init(gen: torch.Generator | None, shape: tuple[int, ...],
     device = gen.device if gen is not None else device
     return (torch.randn((*lead, *shape), generator=gen, dtype=torch.float32,
                         device=device) * scale).to(dtype)
+
+
+def remat(fn, *args):
+    """``fn(*args)``, checkpointed when grad is enabled (the reference's
+    ``jax.checkpoint``): the backward recomputes ``fn``'s activations
+    instead of holding them.  Without grad it is the plain call."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # ------------------------------------------------------------------ #
@@ -116,7 +127,9 @@ def gqa_attention(
     With ``use_pallas`` and no explicit mask this is one launch of the CUDA
     ``flash_attention`` kernel.  Otherwise masks are built per query block
     and the scores are blocked over queries, bounding the f32 logits to
-    ``B x heads x q_block x Sk`` (no checkpoint is needed without autograd).
+    ``B x heads x q_block x Sk``; with grad enabled each block is
+    checkpointed (the reference's ``jax.checkpoint``), so the backward
+    holds one block's scores at a time.
     """
     if use_pallas and mask is None:
         from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -126,9 +139,11 @@ def gqa_attention(
     if mask is not None or Sq <= q_block or Sq % q_block != 0:
         return _attn_block(q, k, v, mask, causal=causal, window=window,
                            prefix_len=prefix_len, q_start=q_offset)
-    outs = [_attn_block(q[:, i:i + q_block], k, v, None, causal=causal,
-                        window=window, prefix_len=prefix_len,
-                        q_start=q_offset + i)
+    def block(qb, k, v, i):
+        return _attn_block(qb, k, v, None, causal=causal, window=window,
+                           prefix_len=prefix_len, q_start=q_offset + i)
+
+    outs = [remat(block, q[:, i:i + q_block], k, v, i)
             for i in range(0, Sq, q_block)]
     return torch.cat(outs, dim=1)
 

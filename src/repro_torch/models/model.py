@@ -1,5 +1,5 @@
 """Port of ``repro.models.model``: model assembly for the dense, ssm and
-hybrid families, forward and one-token decode.
+hybrid families, forward, the LM loss and one-token decode.
 
 Families here: dense (stablelm), ssm (mamba2), hybrid (zamba2: mamba2
 blocks + one shared attention block applied every ``shared_attn_every``
@@ -12,9 +12,16 @@ stacked on a leading ``[L, ...]`` axis, each leaf in its own type (the SSM's
 ``A_log``, ``D_skip`` and ``dt_bias`` stay f32 in a bf16 tree).
 ``params_from_numpy`` / ``params_to_numpy`` carry a reference tree across
 (``jax.tree_util.tree_map(np.asarray, params)``) bit for bit.  The forward
-walks the layers in a Python loop over views of the stacked leaves; with
-``cfg.use_pallas`` attention and the SSD scan go through the hand-written
-CUDA kernels, exactly where the reference goes through Pallas.  There is no
+walks the layers in a Python loop over views of the stacked leaves, each
+leaf unbound once per forward (under autograd, ``t[i]`` per layer would
+build a zero tensor of the whole ``[L, ...]`` leaf in each layer's
+backward; ``unbind``'s backward stacks the layers' gradients once).  With
+``cfg.remat`` and grad enabled each block is checkpointed, as the
+reference's ``_stack_scan`` does.  With ``cfg.use_pallas`` attention and
+the SSD scan go through the hand-written CUDA kernels, exactly where the
+reference goes through Pallas; they are forward only and refuse autograd,
+so ``loss_fn`` trains through the plain routes, as the reference does.
+There is no
 sharding: the port runs on one device, so the reference's
 sequence-parallel constraint (``_seq_shard``), ``param_pspecs`` and
 ``add_fsdp`` have no counterpart.
@@ -30,10 +37,12 @@ model's largest tensor, and a copy per token would double it.  The cache's
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -186,6 +195,12 @@ def _layer(tree: PyTree, i: int) -> PyTree:
     return _map(lambda t: t[i], tree)
 
 
+def _unstack(tree: PyTree, n: int) -> list[PyTree]:
+    """The ``n`` layers of a stacked tree, each leaf unbound once (views)."""
+    flat = _map(torch.unbind, tree)
+    return [_map(lambda layers: layers[i], flat) for i in range(n)]
+
+
 # ================================================================== #
 # forward passes
 # ================================================================== #
@@ -228,21 +243,27 @@ def forward_hidden(params: PyTree, cfg: ArchConfig,
     embed = params["embed"]
     tokens = torch.as_tensor(batch["tokens"], device=embed.device).long()
     B, S = tokens.shape
-    h = embed[tokens]
+    # F.embedding, not embed[tokens]: the same rows, and a backward that sums
+    # each row's gradients in a fixed order (index_put's accumulate does not)
+    h = F.embedding(tokens, embed)
     positions = torch.arange(S, dtype=torch.int32,
                              device=embed.device)[None].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=embed.device)
 
+    layers = _unstack(params["blocks"], cfg.n_layers)
+    # per-block remat of the stacked layers, as the reference's _stack_scan;
+    # the hybrid's shared block sits outside the scan there and here
+    block = Lyr.remat if cfg.remat else (lambda fn, *a: fn(*a))
     if cfg.family == "dense":
-        for i in range(cfg.n_layers):
-            h = _dense_block_fwd(cfg, _layer(params["blocks"], i), h, positions)
+        for lp in layers:
+            h = block(partial(_dense_block_fwd, cfg), lp, h, positions)
     elif cfg.family == "ssm":
-        for i in range(cfg.n_layers):
-            h = _mamba_block_fwd(cfg, _layer(params["blocks"], i), h)
+        for lp in layers:
+            h = block(partial(_mamba_block_fwd, cfg), lp, h)
     else:   # hybrid: k mamba layers, then the shared attention block
         for lo, hi, with_attn in _hybrid_segments(cfg):
-            for i in range(lo, hi):
-                h = _mamba_block_fwd(cfg, _layer(params["blocks"], i), h)
+            for lp in layers[lo:hi]:
+                h = block(partial(_mamba_block_fwd, cfg), lp, h)
             if with_attn:
                 h = _shared_attn_fwd(cfg, params["shared_attn"], h, positions)
 
@@ -272,6 +293,44 @@ def _unembed(params, cfg, h):
     if cfg.tied_embeddings:
         return h @ params["embed"].T
     return h @ params["unembed"]
+
+
+_LOSS_CHUNK = 512
+
+
+def _xent_chunk(params, cfg, h, labels, mask):
+    """f32 cross-entropy summed over one sequence chunk, with the
+    reference's one-hot (iota-compare) contraction for the label logit."""
+    logits = _unembed(params, cfg, h).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    onehot = (labels[..., None] == iota).to(logits.dtype)
+    ll = torch.sum(logits * onehot, dim=-1)
+    return torch.sum((logz - ll) * mask)
+
+
+def loss_fn(params: PyTree, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """Masked LM cross-entropy (+ the aux loss, 0 for these families).
+
+    ``batch`` holds ``tokens``, ``labels`` and ``mask`` ([B, S], arrays or
+    tensors; moved to the parameters' device).  When ``S`` is a multiple of
+    512 above it, the unembed and softmax run in 512-token chunks, each
+    checkpointed under grad, so the f32 logits working set is ``[B, 512,
+    V]``; the chunks' sums add in sequence order, as the reference's scan."""
+    h, aux = forward_hidden(params, cfg, batch)
+    labels = torch.as_tensor(batch["labels"], device=h.device).long()
+    mask = torch.as_tensor(batch["mask"], device=h.device).float()
+    S = labels.shape[1]
+    chunk = _LOSS_CHUNK if (S % _LOSS_CHUNK == 0 and S > _LOSS_CHUNK) else S
+    if chunk == S:
+        total = _xent_chunk(params, cfg, h, labels, mask)
+    else:
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for lo in range(0, S, chunk):
+            c = slice(lo, lo + chunk)
+            total = total + Lyr.remat(partial(_xent_chunk, params, cfg),
+                                      h[:, c], labels[:, c], mask[:, c])
+    return total / torch.clamp(mask.sum(), min=1.0) + aux
 
 
 # ================================================================== #

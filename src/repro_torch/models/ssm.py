@@ -21,6 +21,8 @@ gated RMSNorm; out_proj.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -70,7 +72,10 @@ def ssd_chunked(
     decay = cum_h[..., :, None] - cum_h[..., None, :]             # cum_q - cum_s
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                    device=x.device))
-    gate = torch.where(causal, torch.exp(decay), torch.zeros_like(decay))
+    # mask BEFORE the exp: above the diagonal cum_q - cum_s > 0 overflows
+    # to inf at long chunks, and the reference's where(causal, exp(decay), 0)
+    # then backpropagates 0 * inf = NaN; the forward values are the same
+    gate = torch.exp(decay.masked_fill(~causal, -math.inf))
     weights = scores * gate                                       # [B,nc,H,Q,S]
     xdt = xc.float() * dtc[..., None].float()
     y_intra = torch.einsum("bnhqs,bnshp->bnqhp", weights, xdt)

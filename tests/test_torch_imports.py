@@ -141,6 +141,36 @@ def test_port_has_the_pipeline_slice():
     assert not stubs, stubs
 
 
+def test_port_has_the_lm_train_slice():
+    """The LM training step: the tokenizer and batch pipeline, the LR
+    schedules, ``loss_fn``, ``make_train_step``, the launcher's ``--mode
+    lm`` and the backbone example twin, importable without JAX or
+    ``repro``; no port file still says the slice is missing."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for rel in ("src/repro_torch/data/tokenizer.py",
+                "src/repro_torch/data/pipeline.py",
+                "src/repro_torch/optim/schedules.py",
+                "src/repro_torch/examples/backbone_lm.py"):
+        assert rel in names
+    code = ("import sys, repro_torch.examples.backbone_lm; "
+            "from repro_torch.models import loss_fn; "
+            "from repro_torch.launch.steps import make_train_step, pick_microbatches; "
+            "from repro_torch.launch.train import train_lm, lm_loop; "
+            "from repro_torch.data import SmilesTokenizer, TokenBatcher, lm_batches_from_smiles; "
+            "from repro_torch.optim import constant, cosine_decay, linear_warmup_cosine; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
+            "assert not bad, bad; print('clean')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+    stubs = [p for p in PORT_FILES if "ROADMAP A6a" in p.read_text()
+             or "arrive with the backbone slice" in p.read_text()
+             or "comes with the LM training slice" in p.read_text()]
+    assert not stubs, stubs
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[p.relative_to(ROOT).as_posix() for p in PORT_FILES])
 def test_no_jax_or_repro_import(path):

@@ -336,9 +336,12 @@ def test_launcher_resume_prints_the_unbroken_run(tmp_path, predictor_cache, monk
 
 
 def test_launcher_lm_mode_names_its_roadmap_item(capsys):
+    """ROADMAP A6a (the LM training step) is done: ``--mode lm`` trains
+    and prints the reference's final JSON instead of naming the item."""
     from repro_torch.launch import train as launcher
-    with pytest.raises(SystemExit) as e:
-        launcher.main(["--mode", "lm"])
-    assert "A6a" in str(e.value.code)
+    launcher.main(["--mode", "lm", "--reduced", "--steps", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "A6a" not in out
+    assert json.loads(out.strip().splitlines()[-1])["steps"] == 2
     assert launcher.parser().parse_args([]).device == "cuda"
     assert launcher.parser().parse_args([]).ckpt_dir == ".cache/rl_ckpt_torch"
