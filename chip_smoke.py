@@ -38,6 +38,24 @@ Phases, each of which exits non-zero on failure:
              run's (losses within 1e-4 rel), the acting, rollout and
              learner modes bit-identical to one another, and a run under
              a seeded FaultPlan bit-identical to its fault-free twin.
+5a. mesh   - the sharded trainer (``launch/mesh.py``) on a pool of ``cuda``
+             repeated: the driver's machine has one card, so every shard
+             shares it.  First ``packed_qnet_stacked`` launched per shard on
+             contiguous ``[W_local, ...]`` slices of a W = 8 fleet (W_local
+             1, 2 and 4, an all-dead shard of zero planes included) must
+             give the unsharded launch's bits.  Then the launcher-default
+             fleet (4 workers x 4 molecules, full-width Q net, fleet
+             rollout, packed acting and learner, ``OracleService``,
+             epsilon 0.05) for 3 episodes at nd = 1, 2 and 4: transitions,
+             reward and loss logs and every parameter bit identical across
+             nd, ``packed_qnet_stacked`` launches == nd x fleet Q
+             dispatches, 0 shape events after the warmup episode, env
+             steps/s and updates/s per nd (the sharding's overhead, not a
+             speedup).  A ragged W = 6 at nd = 4 (W_pad 8, two dead slots)
+             in both sync modes equal to its unpadded nd = 1 run on the
+             live rows, and the episode-mode run's ``state_dict`` after
+             episode 1 restored into a fresh nd = 4 trainer ends
+             bit-identical on every key.
 6. train_rl - the paper's launcher path (``repro_torch.launch.train --mode
              rl``) on the GPU: ``ensure_trained`` trains Alfabet-S and
              AIMNet-S at 1500 steps each into a fresh cache under
@@ -163,6 +181,10 @@ CROSS_ROWS = (5, 128)           # a prefix of N = 2048 run on its own tile
 CROSS_STACKED = 32              # a prefix of each worker's rows, likewise
 TRAIN_EPISODES = 3
 TRAIN_LOSS_RTOL = 1e-4          # GPU vs CPU losses: cuBLAS vs CPU BLAS sums
+MESH_ND = (1, 2, 4)             # shards of the one card
+MESH_EPISODES = 3               # a warmup episode, then 2 measured
+MESH_RAGGED = 6                 # W = 6 pads to 8 on 4 shards
+MESH_KERNEL_ROWS = 512
 
 # the RL launcher's path (train_rl): predictors trained at the launcher's
 # 1500 steps, held to the paper's envelope (tests/test_system.py:24-25);
@@ -752,6 +774,148 @@ def phase_train() -> int:
     print(f"train: FaultPlan run ({retries} predict retries, "
           f"{faulted.engine.fault_stats()['n_chem_retries']} chem retries) "
           f"bit-identical to its fault-free twin", flush=True)
+    return launches
+
+
+def _mesh_kernel_check() -> None:
+    """Per-shard launches on contiguous ``[W_local, ...]`` slices give the
+    unsharded launch's bits: W = 8 at W_local 1, 2 and 4, workers 6 and 7
+    dead (zero planes), so the last shard at W_local 2 is all dead."""
+    import torch
+    from repro_torch.kernels.packed_qnet.ops import packed_qnet_stacked
+    W, C = 8, MESH_KERNEL_ROWS
+    weights, bits, frac = _stacked_inputs(W, C)
+    bits[6:], frac[6:] = 0, 0.0
+    full = packed_qnet_stacked(weights, bits, frac)
+    for per in (1, 2, 4):
+        cut = lambda t, s: t[s:s + per].contiguous()
+        parts = [packed_qnet_stacked([(cut(w, s), cut(b, s)) for w, b in weights],
+                                     cut(bits, s), cut(frac, s))
+                 for s in range(0, W, per)]
+        if not torch.equal(torch.cat(parts), full):
+            fail(f"mesh: per-shard packed_qnet_stacked at W_local {per} of "
+                 f"{W} x {C} differs from the unsharded launch")
+    print(f"mesh: per-shard packed_qnet_stacked at W_local 1, 2, 4 of {W} x {C} "
+          f"(an all-dead shard included) bit-identical to the unsharded launch",
+          flush=True)
+
+
+def _mesh_run(setup, nd: int, workers: int = 4, sync: str = "episode",
+              snapshot: bool = False):
+    """The launcher-default fleet (or a ragged one) on ``nd`` shards of one
+    card: a warmup episode with the 1.3x candidate reserve, then the
+    measured episodes.  Returns the trainer, its ``packed_qnet_stacked``
+    launches, with ``snapshot`` its state after the warmup episode (else
+    None), and its env steps/s and updates/s over the measured episodes
+    (the warmup episode pays first-use costs)."""
+    from repro_torch.core.agent import DQNConfig
+    from repro_torch.core.distributed import DistributedTrainer, TrainerConfig
+    from repro_torch.core.jit_stats import RecompileCounter
+    from repro_torch.kernels.packed_qnet.ops import packed_qnet_stacked
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.predictors.service import OracleService
+    train, rcfg = setup
+    # epsilon 0.05: Q decides most actions, so the shards' Q bits matter
+    cfg = TrainerConfig(n_workers=workers, episodes=MESH_EPISODES,
+                        sync_mode=sync, dqn=DQNConfig(epsilon_initial=0.05,
+                                                      epsilon_decay=0.97))
+    tr = DistributedTrainer(cfg, list(train[:workers * cfg.mols_per_worker]),
+                            OracleService(), rcfg,
+                            mesh=make_host_mesh(nd, pool=["cuda"] * nd))
+    counter = RecompileCounter.install()
+    packed_qnet_stacked.launches = 0
+    with counter.window():
+        tr.train_episode()
+        tr.reserve_candidates(int(tr.candidate_capacity * 1.3))
+    snap = tr.state_dict() if snapshot else None
+    marks = (tr.engine.n_env_steps, tr.rollout_s, tr.n_updates, tr.learner_s)
+    with counter.window() as measured:
+        while tr.episode < MESH_EPISODES:
+            tr.train_episode()
+    tr.close()
+    rates = ((tr.engine.n_env_steps - marks[0]) / (tr.rollout_s - marks[1]),
+             (tr.n_updates - marks[2]) / (tr.learner_s - marks[3]))
+    launches = packed_qnet_stacked.launches
+    tag = f"mesh: W={workers} nd={nd} sync={sync}"
+    if launches != nd * tr.n_q_dispatches or launches == 0:
+        fail(f"{tag}: packed_qnet_stacked launches {launches} != {nd} x fleet "
+             f"Q dispatches {tr.n_q_dispatches}")
+    if measured.count != 0:
+        fail(f"{tag}: {measured.count} shape events after warmup")
+    if not all(math.isfinite(x) for x in tr.reward_log) or \
+            not all(math.isfinite(x) for x in tr.loss_log):
+        fail(f"{tag}: rewards {tr.reward_log} or losses {tr.loss_log} not finite")
+    return tr, launches, snap, rates
+
+
+def _mesh_signature(tr):
+    """``_train_signature`` over the live workers' parameter rows."""
+    bufs, rewards, losses, _ = _train_signature(tr)
+    return (bufs, rewards, losses,
+            [t[:tr.n_live_workers].cpu().numpy().tobytes()
+             for wb in tr.params for t in wb])
+
+
+def phase_mesh(card: str) -> dict:
+    """The sharded trainer on a pool of ``cuda`` repeated: nd shards share
+    the one card, so the rates show the sharding's overhead."""
+    _mesh_kernel_check()
+    setup = _train_setup()
+    launches, sig = {}, {}
+    for nd in MESH_ND:
+        tr, launches[f"W4_nd{nd}"], _, rates = _mesh_run(setup, nd)
+        sig[nd] = _mesh_signature(tr)
+        timing = tr.dispatch_timing()
+        print(f"mesh: W=4 x 4 nd={nd} ({tr.n_padded_workers} workers, "
+              f"{tr.n_padded_workers // nd} a shard; {card}; the {nd} shards "
+              f"share one card, so these rates show the sharding's overhead, "
+              f"not a speedup) | over the {MESH_EPISODES - 1} measured "
+              f"episodes: {rates[0]:.2f} env steps/s, "
+              f"{rates[1]:.2f} updates/s (host clock, ends synced) | "
+              f"per Q dispatch H2D {timing['h2d_ms']:.4f} "
+              f"ms + packed_qnet_stacked {timing['kernel_ms']:.4f} ms over "
+              f"{nd} launch(es) (CUDA events) | launches "
+              f"{launches[f'W4_nd{nd}']} = {nd} x {tr.n_q_dispatches} Q "
+              f"dispatches | 0 shape events after warmup", flush=True)
+        if sig[nd] != sig[MESH_ND[0]]:
+            fail(f"mesh: nd={nd} transitions, rewards, losses or parameters "
+                 f"differ from nd={MESH_ND[0]}")
+    print(f"mesh: nd {', '.join(map(str, MESH_ND))}: transitions, reward and "
+          f"loss logs and every parameter bit identical", flush=True)
+
+    for sync in ("episode", "step"):
+        flat_tr = _mesh_run(setup, 1, MESH_RAGGED, sync)[0]
+        padded, n, snap, _ = _mesh_run(setup, 4, MESH_RAGGED, sync,
+                                       snapshot=sync == "episode")
+        launches[f"W{MESH_RAGGED}_nd4_{sync}"] = n
+        if padded.n_padded_workers != 8:
+            fail(f"mesh: W={MESH_RAGGED} on 4 shards padded to "
+                 f"{padded.n_padded_workers}, not 8")
+        if _mesh_signature(padded) != _mesh_signature(flat_tr):
+            fail(f"mesh: ragged W={MESH_RAGGED} nd=4 sync={sync} differs from "
+                 f"its unpadded nd=1 run on the live rows")
+        print(f"mesh: ragged W={MESH_RAGGED} nd=4 (W_pad 8) sync={sync} "
+              f"bit-identical to nd=1 on the live rows | launches {n} = 4 x "
+              f"{padded.n_q_dispatches}", flush=True)
+        if snap is None:
+            continue
+        from repro_torch.core.distributed import DistributedTrainer
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.predictors.service import OracleService
+        train, rcfg = setup
+        fresh = DistributedTrainer(
+            padded.cfg, list(train[:MESH_RAGGED * padded.cfg.mols_per_worker]),
+            OracleService(), rcfg, mesh=make_host_mesh(4, pool=["cuda"] * 4))
+        fresh.load_state_dict(snap)
+        while fresh.episode < MESH_EPISODES:
+            fresh.train_episode()
+        fresh.close()
+        if _state_bytes(fresh) != _state_bytes(padded):
+            fail("mesh: the padded nd=4 checkpoint restored into a fresh nd=4 "
+                 "trainer did not resume bit-identical")
+        print(f"mesh: padded nd=4 state_dict ({len(snap)} keys, [8, ...] "
+              f"leaves) restored into a fresh nd=4 trainer at episode 1 ends "
+              f"bit-identical on every key", flush=True)
     return launches
 
 
@@ -2019,6 +2183,9 @@ def main() -> None:
     launches = phase_train()
     for r in stacked_rows:
         r["launches"] = launches
+    launches = phase_mesh(card)
+    for r in stacked_rows:
+        r["launches_mesh"] = launches
     rl, (tr, svc, cache_dir) = phase_train_rl()
     for r in rows:
         r["launches_greedy_eval"] = rl["greedy"]

@@ -1,9 +1,9 @@
-"""Port of ``repro.core.distributed``: the DA-MolDQN trainer on one GPU.
+"""Port of ``repro.core.distributed``: the DA-MolDQN trainer on a device
+mesh.
 
 N workers, each owning a batch of start molecules and a private replay
-buffer, cooperate on ONE general model.  Worker parameters are stacked
-along a leading ``[W, ...]`` axis on ``device`` (the GPU unless the caller
-names another).  The two synchronisation regimes of the reference:
+buffer, cooperate on ONE general model.  The two synchronisation regimes
+of the reference:
 
 * ``sync_mode="step"``    — MT-MolDQN/DDP: gradients are averaged across
   workers at every optimiser step (parameters stay replicated);
@@ -11,39 +11,59 @@ names another).  The two synchronisation regimes of the reference:
   parameters, and parameters and Adam moments are averaged once per
   episode boundary.
 
-Both averages are ``_fleet_mean``: a sum over the whole live worker axis in
-worker order, divided by the live count, as the reference's ``fleet_mean``
-is.  Per-worker updates run serially, one Python loop over workers with
-autograd on each worker's own parameter slice, as the reference's
-``lax.scan`` does.
+The mesh (``launch/mesh.py``) is the reference's single-controller
+program: this one process owns every worker's environment, replay buffer
+and RNG stream, and only the device state is split.  Worker state is
+stacked along a padded ``[W_pad, ...]`` axis and cut into ``nd`` shards;
+shard ``s`` holds workers ``shard_slices(W_pad, mesh)[s]`` — parameters,
+target and Adam state, ``[W_pad / nd, ...]`` each — on ``mesh.devices[s]``.
+A fleet whose W does not divide the mesh pads to it with DEAD worker slots
+(``padded_worker_count``): they own no molecules and ship zero batches,
+their gradients are zero, yet they take every Adam step and receive every
+sync and step-mode mean update, as the reference's masked ``shard_map``
+bodies do, so a padded checkpoint holds the reference's rows.  With no mesh
+the trainer runs one shard on ``device``, and ``params``, ``target_params``
+and ``opt_state`` are that shard's own ``[W, ...]`` tensors; at nd > 1 they
+are gathered read-only copies on the mesh's first device.
+
+Both averages are ``_fleet_mean``: every shard's rows gathered onto one
+device, dead rows left out, summed in worker order from +0 and divided by
+the live count, as the reference's ``fleet_mean`` (``all_gather`` + one
+full-axis reduction) is.  The reduction order never depends on nd, so a
+run at nd = 2 or 4 is bit-identical to nd = 1.  Per-worker updates run
+serially, one Python loop over each shard's resident workers with autograd
+on one worker's slice at a time, as the reference's ``lax.scan`` does.
 
 Acting is host-driven through ``RolloutEngine``: every environment step is
-one Q dispatch over every worker's candidates and one property batch.  On
-the card each fleet dispatch is one launch of the hand-written CUDA
-``packed_qnet_stacked`` kernel (``acting="packed"`` and ``"packed_async"``
-read u8 fingerprint planes; ``"dense"`` reads f32 rows through the same
-kernel's dense loader, with the same bits); on the CPU the wrappers run
+one Q dispatch over every worker's candidates and one property batch.  A
+fleet dispatch (``"fleet"``, ``"fleet_sharded"`` and ``"fleet_pipelined"``
+alike) copies each shard's ``[W_pad / nd, C, ...]`` rows from one pinned
+host buffer to its device and launches the hand-written CUDA
+``packed_qnet_stacked`` kernel on that shard's own parameters: nd launches
+a dispatch, all enqueued before the one fetch, so shards on distinct cards
+overlap.  ``acting="packed"`` and ``"packed_async"`` read u8 fingerprint
+planes; ``"dense"`` reads f32 rows through the same kernel's dense loader
+(``dense_qnet_stacked``), with the same bits.  On the CPU the wrappers run
 their plain versions.  ``rollout="per_worker"`` dispatches each worker's
-rows through ``fused_qnet``.  There is one device, so ``"fleet_sharded"``
-is the same dispatch as ``"fleet"`` and ``n_padded_workers ==
-n_workers`` until the multi-GPU port (ROADMAP A6); ``"fleet_pipelined"``
+rows through ``fused_qnet`` on its shard's device; ``"fleet_pipelined"``
 adds the engine's double-buffered host step.
 
 Learning is the reference's double-DQN loss with the hand-ported Adam
 (``optim/adam.py``) under ``TrainerConfig.learner``: ``"dense"`` ships
 host-densified f32 batches, ``"packed"`` ships u8 planes and densifies on
-the device (``packed_batch.densify_batch``), and ``"packed_pipelined"``
-draws update k+1's packed batch on a sampler thread while update k runs.
-All three give the same batches, so the same losses and parameters.  The
-learner's products are ``torch.matmul`` under autograd; the reference
-leaves them to XLA and has no kernel there.
+each shard's device (``packed_batch.densify_batch``), and
+``"packed_pipelined"`` draws update k+1's packed batch on a sampler thread
+while update k runs.  All three give the same batches, so the same losses
+and parameters.  The learner's products are ``torch.matmul`` under
+autograd; the reference leaves them to XLA and has no kernel there.
 
-``state_dict`` / ``load_state_dict`` snapshot the whole training state in
-the reference's checkpoint layout, so a resumed run is bit-identical to
-one that never stopped and a checkpoint crosses between the packages.
-``greedy_optimize`` and ``optimization_failure_rate`` are the paper's
-evaluation of the general model (Eq. 2); their Q dispatches go through
-``DQNAgent.q_values`` and so through ``fused_qnet``.
+``state_dict`` / ``load_state_dict`` gather the shards into the
+reference's checkpoint layout (``[W_pad, ...]`` leaves) and scatter them
+back, so a resumed run is bit-identical to one that never stopped and a
+checkpoint crosses between the packages.  ``greedy_optimize`` and
+``optimization_failure_rate`` are the paper's evaluation of the general
+model (Eq. 2); their Q dispatches go through ``DQNAgent.q_values`` and so
+through ``fused_qnet``.
 """
 
 from __future__ import annotations
@@ -71,6 +91,9 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_qnet.ops import fused_qnet
 from repro_torch.kernels.packed_qnet.ops import (dense_qnet_stacked,
                                                  packed_qnet_stacked)
+from repro_torch.data.pipeline import shard_batch
+from repro_torch.launch.mesh import (HostMesh, make_host_mesh,
+                                     padded_worker_count, shard_slices)
 from repro_torch.optim.adam import OptState, adam, apply_updates
 
 ROLLOUT_MODES = ("fleet", "fleet_sharded", "fleet_pipelined", "per_worker")
@@ -133,9 +156,30 @@ def _worker_layers(layers: Layers, w: int) -> Layers:
     return [(wt[w], bt[w]) for wt, bt in layers]
 
 
+def _rows_of(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``n`` stacked copies of ``x`` in fresh memory (never a view of
+    ``x``: shards on one device must not share storage)."""
+    return x.unsqueeze(0).repeat((n,) + (1,) * x.dim())
+
+
+@dataclass
+class _Shard:
+    """One mesh shard: padded workers ``rows`` resident on ``device`` as
+    ``[W_pad / nd, ...]`` stacks."""
+    device: torch.device
+    rows: slice
+    params: Layers
+    target: Layers
+    opt: OptState
+
+    def opt_leaves(self) -> list[torch.Tensor]:
+        return [self.opt.step] + list(self.opt.mu) + list(self.opt.nu)
+
+
 class _WorkerView:
     """Adapter giving BatchedEnv the per-worker agent interface (the
-    sequential path: one ``fused_qnet`` launch per worker per step)."""
+    sequential path: one ``fused_qnet`` launch per worker per step, on the
+    worker's shard)."""
 
     def __init__(self, trainer: "DistributedTrainer", w: int):
         self.t = trainer
@@ -143,9 +187,9 @@ class _WorkerView:
 
     def q_values(self, states: np.ndarray) -> np.ndarray:
         self.t.n_q_dispatches += 1
+        sh, i = self.t._locate(self.w)
         x = torch.from_numpy(np.ascontiguousarray(states, np.float32))
-        q = fused_qnet(_worker_layers(self.t.params, self.w),
-                       x.to(self.t.device))
+        q = fused_qnet(_worker_layers(sh.params, i), x.to(sh.device))
         return q.cpu().numpy()
 
     def select_action(self, q: np.ndarray) -> int:
@@ -153,29 +197,34 @@ class _WorkerView:
 
 
 class _QHandle:
-    """An in-flight fleet Q dispatch: the host array once ``done`` has
-    fired (on the CPU it is computed already), the per-worker counts, and
-    on the card the CUDA events that time the copy in and the kernel."""
+    """An in-flight fleet Q dispatch: the host array (on the CPU it is
+    computed already), the per-worker counts, and on the card one
+    ``(done, events)`` pair per shard: the event that fires once the
+    shard's Q is back in the pinned output, and the CUDA events that time
+    its copy in and its kernel."""
 
     def __init__(self, q_host: np.ndarray | None, counts: list[int],
-                 done=None, events=None):
-        self.q_host, self.counts, self.done, self.events = \
-            q_host, counts, done, events
+                 pending: list | None = None):
+        self.q_host, self.counts, self.pending = q_host, counts, pending
 
 
 class _FleetView:
     """FleetPolicy over the trainer's stacked per-worker parameters: ONE
-    kernel launch evaluates every worker's candidates under that worker's
-    own parameters.
+    kernel launch per shard evaluates that shard's workers' candidates
+    under each worker's own parameters.
 
     The candidate axis is padded to a rung of the capacity ladder
-    (``candidate_capacity_table``) and the host batch buffer is a sticky
-    high-water mark, as in the reference; the kernel masks nothing past the
-    buffer, and the padded rows are zero planes.  On the card the host
-    buffers are pinned, the copy in and the copy of Q back are queued with
-    ``non_blocking=True`` behind the kernel, and ``fleet_q_fetch`` waits on
-    one event: the only synchronisation point of a dispatch.  CUDA events
-    time the copy in and the kernel (``dispatch_timing``).
+    (``candidate_capacity_table``) and the host batch buffer, ``[W_pad, C,
+    ...]`` for the whole fleet, is a sticky high-water mark, as in the
+    reference; the kernel masks nothing past the buffer, and the padded
+    rows (dead workers' included) are zero planes.  On the card the host
+    buffers are pinned; each shard's copy in, its launch and the copy of
+    its Q back into the pinned output are queued with ``non_blocking=True``
+    on its device's stream, every shard before any wait, and
+    ``fleet_q_fetch`` waits on each shard's event: the only
+    synchronisation point of a dispatch, and what keeps the engine from
+    rewriting the host buffer under a copy.  CUDA events time each shard's
+    copy in and kernel (``dispatch_timing`` sums the shards).
     """
 
     def __init__(self, trainer: "DistributedTrainer", acting: str = "dense"):
@@ -227,17 +276,25 @@ class _FleetView:
         kernel = packed_qnet_stacked if self.wants_packed_states \
             else dense_qnet_stacked
         if t.device.type != "cuda":
-            return _QHandle(kernel(t.params, *self._host).numpy(), counts)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        ev[0].record()
-        xs = [h.to(t.device, non_blocking=True) for h in self._host]
-        ev[1].record()
-        q = kernel(t.params, *xs)
-        ev[2].record()
-        self._q_out.copy_(q, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return _QHandle(None, counts, done, ev)
+            q = [kernel(sh.params, *[h[sh.rows] for h in self._host])
+                 for sh in t._shards]
+            return _QHandle(torch.cat(q).numpy(), counts)
+        pending = []
+        for sh in t._shards:     # every shard enqueued before any wait
+            stream = torch.cuda.current_stream(sh.device)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            with torch.cuda.device(sh.device):
+                ev[0].record(stream)
+                xs = [h[sh.rows].to(sh.device, non_blocking=True)
+                      for h in self._host]
+                ev[1].record(stream)
+                q = kernel(sh.params, *xs)
+                ev[2].record(stream)
+                self._q_out[sh.rows].copy_(q, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(stream)
+            pending.append((done, ev))
+        return _QHandle(None, counts, pending)
 
     # ---- dense reference ---------------------------------------- #
     def fleet_q_values(self, per_worker: list[np.ndarray]) -> list[np.ndarray]:
@@ -270,15 +327,16 @@ class _FleetView:
         return self._dispatch(counts)
 
     def fleet_q_fetch(self, handle: _QHandle) -> list[np.ndarray]:
-        """Wait for the dispatch and slice its Q back per worker."""
-        if handle.done is None and handle.q_host is None:
+        """Wait for every shard of the dispatch and slice its Q back per
+        worker."""
+        if handle.pending is None and handle.q_host is None:
             return [np.zeros((0,), np.float32) for _ in handle.counts]
         qh = handle.q_host
-        if handle.done is not None:
-            handle.done.synchronize()
-            ev = handle.events
-            self.h2d_ms += ev[0].elapsed_time(ev[1])
-            self.kernel_ms += ev[1].elapsed_time(ev[2])
+        if handle.pending is not None:
+            for done, ev in handle.pending:
+                done.synchronize()
+                self.h2d_ms += ev[0].elapsed_time(ev[1])
+                self.kernel_ms += ev[1].elapsed_time(ev[2])
             self.n_timed += 1
             qh = self._q_out.numpy()
         return [qh[w, :n].copy() for w, n in enumerate(handle.counts)]
@@ -295,14 +353,15 @@ class _FleetView:
 
 
 class DistributedTrainer:
-    """Trains ONE general model over many molecules with W workers on one
-    device.
+    """Trains ONE general model over many molecules with W workers on a
+    device mesh.
 
     ``network`` supplies the architecture and the initial weights every
     worker starts from (like a DDP broadcast); None builds a He-normal
     ``QNetwork`` from ``cfg.seed``.  Parity tests pass the reference's
-    worker-0 parameters through ``params_from_jax``.  ``device=None`` is
-    the GPU and raises without one.
+    worker-0 parameters through ``params_from_jax``.  ``mesh=None`` is one
+    shard on ``device``; ``device=None`` is the GPU and raises without one.
+    With a mesh, ``device`` may be left out or must be its first device.
     """
 
     def __init__(
@@ -315,8 +374,17 @@ class DistributedTrainer:
         dataset_pool: list[Molecule] | None = None,
         fault_plan=None,
         device: str | torch.device | None = None,
+        mesh: HostMesh | None = None,
     ):
-        self.device = resolve_device(device)
+        if mesh is None:
+            mesh = make_host_mesh(1, device=device)
+        elif device is not None and resolve_device(device) != mesh.devices[0]:
+            raise ValueError(f"device {device} is not the mesh's first "
+                             f"device {mesh.devices[0]}")
+        if len({d.type for d in mesh.devices}) != 1:
+            raise ValueError(f"a mesh spans one device type, got {mesh.devices}")
+        self.mesh = mesh
+        self.device = mesh.devices[0]
         self.cfg = cfg
         self.service = service
         self.reward_cfg = reward_cfg
@@ -347,9 +415,12 @@ class DistributedTrainer:
         self.molecules = molecules[:need]
         self.start_log: list[tuple[str, ...]] = []  # per-episode start keys
 
-        # one device: no mesh padding until the multi-GPU port
+        # fleets that do not divide the mesh pad to it with DEAD worker
+        # slots (a W = 6 fleet on 4 shards trains as W_pad = 8); the live
+        # workers' transitions, losses and parameters equal the unpadded
+        # run's
         self.n_live_workers = W
-        self.n_padded_workers = W
+        self.n_padded_workers = padded_worker_count(W, mesh)
 
         if cfg.rollout not in ROLLOUT_MODES:
             raise ValueError(f"rollout must be one of {ROLLOUT_MODES}, got {cfg.rollout!r}")
@@ -405,21 +476,23 @@ class DistributedTrainer:
         self.learner_s = 0.0       # host seconds in run_updates (ends synced)
         self._sampler_pool: ThreadPoolExecutor | None = None  # packed_pipelined
 
-        # stacked per-worker parameters [W, ...]: every worker starts from
-        # the same weights
+        # stacked per-worker parameters, [W_pad / nd, ...] per shard: every
+        # worker, dead slots included, starts from the same weights
         if network is None:
             network = QNetwork(generator=torch.Generator().manual_seed(cfg.seed),
                                device="cpu")
-        self.params: Layers = [
-            tuple(t.detach().to(self.device, torch.float32).unsqueeze(0)
-                  .expand((W,) + tuple(t.shape)).contiguous() for t in wb)
-            for wb in network.layers()]
-        self.target_params: Layers = self._copy(self.params)
         self.opt = adam(cfg.dqn.lr, clip_norm=cfg.dqn.grad_clip)
-        self.opt_state = OptState(
-            step=torch.zeros(W, dtype=torch.int32, device=self.device),
-            mu=[torch.zeros_like(t) for t in flat(self.params)],
-            nu=[torch.zeros_like(t) for t in flat(self.params)])
+        self._shards: list[_Shard] = []
+        for dev, rows in zip(mesh.devices,
+                             shard_slices(self.n_padded_workers, mesh)):
+            n = rows.stop - rows.start
+            params = [tuple(_rows_of(t.detach().to(dev, torch.float32), n)
+                            for t in wb) for wb in network.layers()]
+            self._shards.append(_Shard(
+                dev, rows, params, self._copy(params),
+                OptState(step=torch.zeros(n, dtype=torch.int32, device=dev),
+                         mu=[torch.zeros_like(t) for t in flat(params)],
+                         nu=[torch.zeros_like(t) for t in flat(params)])))
 
         self.epsilon = cfg.dqn.epsilon_initial
         self.episode = 0
@@ -431,6 +504,36 @@ class DistributedTrainer:
     @staticmethod
     def _copy(layers: Layers) -> Layers:
         return [(w.clone(), b.clone()) for w, b in layers]
+
+    def _locate(self, w: int) -> tuple[_Shard, int]:
+        """The shard holding padded worker ``w``, and its row there."""
+        per = self.n_padded_workers // self.mesh.size
+        return self._shards[w // per], w % per
+
+    def _gather(self, leaves_of) -> list[torch.Tensor]:
+        """``leaves_of(shard)``'s leaves as ``[W_pad, ...]`` tensors: the
+        shard's own tensors on one shard, else copies concatenated on the
+        mesh's first device."""
+        if len(self._shards) == 1:
+            return list(leaves_of(self._shards[0]))
+        parts = [leaves_of(sh) for sh in self._shards]
+        return [torch.cat([p[k].to(self.device) for p in parts])
+                for k in range(len(parts[0]))]
+
+    @property
+    def params(self) -> Layers:
+        """The stacked ``[W_pad, ...]`` parameters (read-only at nd > 1)."""
+        return unflat(self._gather(lambda sh: flat(sh.params)))
+
+    @property
+    def target_params(self) -> Layers:
+        return unflat(self._gather(lambda sh: flat(sh.target)))
+
+    @property
+    def opt_state(self) -> OptState:
+        leaves = self._gather(_Shard.opt_leaves)
+        n = (len(leaves) - 1) // 2
+        return OptState(step=leaves[0], mu=leaves[1:1 + n], nu=leaves[1 + n:])
 
     @property
     def envs(self) -> list[BatchedEnv]:
@@ -449,72 +552,108 @@ class DistributedTrainer:
     # ------------------------------------------------------------ #
     # cross-worker means and the update bodies
     # ------------------------------------------------------------ #
-    def _fleet_mean(self, x: torch.Tensor) -> torch.Tensor:
-        """Mean over the live workers of a ``[W, ...]`` tensor: the sum in
-        worker order from +0, divided by the live count."""
-        acc = torch.zeros_like(x[0])
-        for w in range(self.n_live_workers):
-            acc = acc + x[w]
+    def _mean_rows(self, rows) -> torch.Tensor:
+        """The live workers' rows, given in worker order on any devices:
+        summed on the mesh's first device from +0, divided by the live
+        count."""
+        rows = list(rows)
+        acc = torch.zeros_like(rows[0], device=self.device)
+        for r in rows:
+            acc = acc + r.to(self.device)
         return acc / self.n_live_workers
 
-    def _sync(self, layers: Layers) -> Layers:
-        return [tuple(self._fleet_mean(t).unsqueeze(0).expand_as(t).contiguous()
-                      for t in wb) for wb in layers]
+    def _fleet_mean(self, parts: list[torch.Tensor]) -> torch.Tensor:
+        """Mean over the live workers of one leaf held as per-shard
+        ``[W_pad / nd, ...]`` parts: gathered, dead rows left out, reduced
+        in worker order, so the bits do not depend on nd."""
+        rows = (p[i] for p in parts for i in range(p.shape[0]))
+        return self._mean_rows(r for _, r in zip(range(self.n_live_workers), rows))
 
-    def _sync_opt(self, opt_state: OptState) -> OptState:
-        """Average the float moments across workers; keep the int step."""
-        avg = lambda ts: flat(self._sync(unflat(ts)))
-        return OptState(step=opt_state.step, mu=avg(opt_state.mu),
-                        nu=avg(opt_state.nu))
+    def _sync(self, leaves_of) -> list[list[torch.Tensor]]:
+        """Per shard, ``leaves_of(shard)`` with every row, dead rows
+        included, set to the leaf's fleet mean."""
+        per_shard = [leaves_of(sh) for sh in self._shards]
+        out = [[] for _ in self._shards]
+        for k in range(len(per_shard[0])):
+            mean = self._fleet_mean([p[k] for p in per_shard])
+            for s, sh in enumerate(self._shards):
+                out[s].append(_rows_of(mean.to(sh.device),
+                                       per_shard[s][k].shape[0]))
+        return out
 
-    def _worker_loss(self, w: int, batch: dict[str, torch.Tensor]):
-        """Worker ``w``'s loss, |TD| and gradients on its own parameters."""
-        leaves = [t[w].detach().requires_grad_(True) for t in flat(self.params)]
-        loss, td = dqn_loss(unflat(leaves), _worker_layers(self.target_params, w),
-                            {k: v[w] for k, v in batch.items()},
+    def _sync_episode(self) -> None:
+        """Average parameters and Adam moments across the workers; keep
+        every worker's int step."""
+        params = self._sync(lambda sh: flat(sh.params))
+        moments = self._sync(lambda sh: list(sh.opt.mu) + list(sh.opt.nu))
+        for sh, p, m in zip(self._shards, params, moments):
+            n = len(p)
+            sh.params = unflat(p)
+            sh.opt = OptState(step=sh.opt.step, mu=m[:n], nu=m[n:])
+
+    def _worker_loss(self, sh: _Shard, i: int, batch: dict[str, torch.Tensor]):
+        """The loss, |TD| and gradients of row ``i`` of shard ``sh`` on its
+        own parameters and batch."""
+        leaves = [t[i].detach().requires_grad_(True) for t in flat(sh.params)]
+        loss, td = dqn_loss(unflat(leaves), _worker_layers(sh.target, i),
+                            {k: v[i] for k, v in batch.items()},
                             self.cfg.dqn.discount)
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), td, list(grads)
 
     @torch.no_grad()
-    def _apply_worker(self, w: int, grads: list[torch.Tensor]) -> None:
-        """One Adam step of worker ``w`` on ``grads``, written back into the
-        stacked parameters and optimizer state."""
-        params = flat(self.params)
-        st = self.opt_state
-        p = [t[w] for t in params]
+    def _apply_worker(self, sh: _Shard, i: int,
+                      grads: list[torch.Tensor]) -> None:
+        """One Adam step of row ``i`` of shard ``sh`` on ``grads``, written
+        back into the shard's stacked parameters and optimizer state."""
+        params = flat(sh.params)
+        st = sh.opt
+        p = [t[i] for t in params]
         updates, s2 = self.opt.update(
-            grads, OptState(step=st.step[w], mu=[m[w] for m in st.mu],
-                            nu=[v[w] for v in st.nu]), p)
+            grads, OptState(step=st.step[i], mu=[m[i] for m in st.mu],
+                            nu=[v[i] for v in st.nu]), p)
         for dst, new in zip(params, apply_updates(p, updates)):
-            dst[w].copy_(new)
+            dst[i].copy_(new)
         for dst, new in zip(st.mu + st.nu, s2.mu + s2.nu):
-            dst[w].copy_(new)
-        st.step[w] = s2.step
+            dst[i].copy_(new)
+        st.step[i] = s2.step
 
-    def _update_once(self, batch: dict[str, torch.Tensor], packed: bool):
-        """One optimiser step under the configured sync mode; returns the
-        per-worker ``(loss [W], |td| [W, B])`` on the device."""
+    def _update_once(self, batches: list[dict[str, torch.Tensor]], packed: bool):
+        """One optimiser step under the configured sync mode from one batch
+        dict per shard (``_ship``); returns the per-worker ``(loss [W_pad],
+        |td| [W_pad, B])`` on the mesh's first device, zero on dead rows.
+
+        Each shard runs its resident workers serially.  A dead worker
+        computes nothing: its gradient is zero, but it still takes its Adam
+        step (episode mode) or the fleet's mean update (step mode), as the
+        reference's masked update bodies do."""
         if packed:
-            batch = densify_batch(batch)
-        W = self.n_live_workers
-        losses, tds = [], []
-        if self.cfg.sync_mode == "step":
-            grads = []
-            for w in range(W):
-                loss, td, g = self._worker_loss(w, batch)
-                losses.append(loss)
-                tds.append(td)
-                grads.append(g)
-            gmean = [self._fleet_mean(torch.stack(gs)) for gs in zip(*grads)]
-            for w in range(W):
-                self._apply_worker(w, gmean)
-        else:
-            for w in range(W):
-                loss, td, g = self._worker_loss(w, batch)
-                self._apply_worker(w, g)
-                losses.append(loss)
-                tds.append(td)
+            batches = [densify_batch(b) for b in batches]
+        step_mode = self.cfg.sync_mode == "step"
+        losses, tds, grads = [], [], []
+        for sh, batch in zip(self._shards, batches):
+            for i, w in enumerate(range(sh.rows.start, sh.rows.stop)):
+                if w >= self.n_live_workers:
+                    losses.append(torch.zeros((), device=self.device))
+                    tds.append(torch.zeros(batch["rewards"].shape[1],
+                                           device=self.device))
+                    if not step_mode:
+                        self._apply_worker(sh, i, [torch.zeros_like(t[i])
+                                                   for t in flat(sh.params)])
+                    continue
+                loss, td, g = self._worker_loss(sh, i, batch)
+                losses.append(loss.to(self.device))
+                tds.append(td.to(self.device))
+                if step_mode:
+                    grads.append(g)
+                else:
+                    self._apply_worker(sh, i, g)
+        if step_mode:
+            gmean = [self._mean_rows(gs) for gs in zip(*grads)]
+            for sh in self._shards:
+                g = [t.to(sh.device) for t in gmean]
+                for i in range(sh.rows.stop - sh.rows.start):
+                    self._apply_worker(sh, i, g)
         self.n_updates += 1
         return torch.stack(losses), torch.stack(tds)
 
@@ -537,12 +676,12 @@ class DistributedTrainer:
             self.learner_s += time.perf_counter() - t0
 
         if cfg.sync_mode == "episode":
-            self.params = self._sync(self.params)
-            self.opt_state = self._sync_opt(self.opt_state)
+            self._sync_episode()
 
         self.episode += 1
         if self.episode % cfg.dqn.target_update_episodes == 0:
-            self.target_params = self._copy(self.params)
+            for sh in self._shards:
+                sh.target = self._copy(sh.params)
         self.epsilon = max(self.epsilon * cfg.dqn.epsilon_decay, cfg.dqn.epsilon_min)
 
         flat_recs = [r for recs in records for r in recs]
@@ -662,38 +801,46 @@ class DistributedTrainer:
             return {"beta": self._beta()}
         return {}
 
-    @staticmethod
-    def _stack(per: list[dict[str, np.ndarray]]) -> dict[str, np.ndarray]:
+    def _stack(self, per: list[dict[str, np.ndarray]]) -> dict[str, np.ndarray]:
+        """Stack the live workers' samples to ``[W_pad, B, ...]``: dead
+        workers get all-zero batches."""
+        if self.n_padded_workers != self.n_live_workers:
+            zero = {k: np.zeros_like(v) for k, v in per[0].items()}
+            per = per + [zero] * (self.n_padded_workers - self.n_live_workers)
         return {k: np.stack([p[k] for p in per]) for k in per[0]}
 
     def _stacked_sample_np(self) -> dict[str, np.ndarray]:
-        """One dense float32 sample per worker buffer, stacked ``[W, B, ...]``."""
+        """One dense float32 sample per worker buffer, stacked ``[W_pad, B,
+        ...]``."""
         kw = self._sample_kwargs()
         return self._stack(
             [b.sample(self.cfg.train_batch_size, self.cfg.max_candidates, **kw)
              for b in self.buffers])
 
     def _stacked_sample_packed_np(self) -> dict[str, np.ndarray]:
-        """u8 planes + scalars per worker buffer, stacked ``[W, B, ...]``:
-        the same seeded draws as ``_stacked_sample_np``."""
+        """u8 planes + scalars per worker buffer, stacked ``[W_pad, B,
+        ...]``: the same seeded draws as ``_stacked_sample_np``."""
         kw = self._sample_kwargs()
         return self._stack(
             [b.sample_packed(self.cfg.train_batch_size, self.cfg.max_candidates,
                              **kw)
              for b in self.buffers])
 
-    def _ship(self, host_batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    def _ship(self, host_batch: dict[str, np.ndarray]
+              ) -> list[dict[str, torch.Tensor]]:
+        """One batch dict per shard, on its device (``shard_batch``)."""
         self.h2d_update_bytes += packed_nbytes(host_batch)
-        return {k: torch.from_numpy(v).to(self.device) for k, v in host_batch.items()}
+        return shard_batch(host_batch, self.mesh)
 
     def _apply_priorities(self, td: torch.Tensor) -> None:
-        """Feed the update's ``[W, B]`` |TD| back into the buffers."""
+        """Feed the update's ``[W_pad, B]`` |TD| back into the live
+        workers' buffers."""
         td_host = td.cpu().numpy()
         for w, buf in enumerate(self.buffers):
             buf.update_priorities(td_host[w])
 
     def _loss_scalar(self, loss: torch.Tensor) -> float:
-        """Scalar loss over the live workers of a ``[W]`` loss vector."""
+        """Scalar loss over the live workers of a ``[W_pad]`` loss vector."""
         return float(loss.cpu().numpy()[: self.n_live_workers].mean())
 
     def _get_sampler(self) -> ThreadPoolExecutor:
@@ -763,7 +910,10 @@ class DistributedTrainer:
     # and the exact epsilon float.  NOT state: the engine (rebuilt from the
     # start assignment every reset), the chemistry cache and property
     # memo (pure deterministic memos — they change speed, never bits), and
-    # the fleet view's sticky pinned buffers.
+    # the fleet view's sticky pinned buffers.  The stacked trees are
+    # gathered from the shards into ``[W_pad, ...]`` leaves, dead rows
+    # included, and scattered back on load: a checkpoint of a padded fleet
+    # restores only into a mesh that pads it to the same W_pad.
     #
     # The keys are the reference's, so a checkpoint crosses between the
     # packages: ``params/{i}``, ``target/{i}`` and ``opt/{i}`` number the
@@ -785,16 +935,15 @@ class DistributedTrainer:
                           default=enc)
 
     def _ckpt_trees(self) -> dict[str, tuple[list[torch.Tensor], list[int]]]:
-        """Per checkpoint tree, a fresh list of the port's tensors and the
-        indices into it in the reference's leaf order."""
-        p = flat(self.params)
-        st = self.opt_state
+        """Per checkpoint tree, a fresh list of the gathered ``[W_pad, ...]``
+        tensors and the indices into it in the reference's leaf order."""
+        p = self._gather(lambda sh: flat(sh.params))
         n = len(p)
         b_w = [i + j for i in range(0, n, 2) for j in (1, 0)]
         return {
             "params": (p, b_w),
-            "target": (flat(self.target_params), b_w),
-            "opt": ([st.step] + list(st.mu) + list(st.nu),
+            "target": (self._gather(lambda sh: flat(sh.target)), b_w),
+            "opt": (self._gather(_Shard.opt_leaves),
                     [0] + [1 + k for k in b_w] + [1 + n + k for k in b_w]),
         }
 
@@ -839,8 +988,8 @@ class DistributedTrainer:
     def load_state_dict(self, flat_state) -> None:
         """Restore a :meth:`state_dict` snapshot (the port's or the
         reference's); the continued run is bit-identical to one that never
-        stopped.  Leaves land on ``self.device``, contiguous, in the dtype
-        of the live tensor they replace."""
+        stopped.  Each shard's rows of a leaf land on its device,
+        contiguous, in the dtype of the live tensor they replace."""
         import json
         from repro_torch.checkpoint.checkpoint import (
             CheckpointError, rng_state_from_array)
@@ -861,13 +1010,14 @@ class DistributedTrainer:
                     raise CheckpointError(
                         f"leaf {key!r}: checkpoint shape {arr.shape} != "
                         f"live shape {tuple(ref.shape)}")
-                ts[j] = torch.from_numpy(np.array(arr)).to(
-                    self.device, ref.dtype).contiguous()
+                ts[j] = torch.from_numpy(np.array(arr)).to(ref.dtype)
         (p, _), (t, _), (opt, _) = (trees[k] for k in ("params", "target", "opt"))
         n = len(p)
-        self.params, self.target_params = unflat(p), unflat(t)
-        self.opt_state = OptState(step=opt[0], mu=opt[1:1 + n],
-                                  nu=opt[1 + n:])
+        for sh in self._shards:
+            p_s, t_s, o_s = ([x[sh.rows].to(sh.device).contiguous() for x in ts]
+                             for ts in (p, t, opt))
+            sh.params, sh.target = unflat(p_s), unflat(t_s)
+            sh.opt = OptState(step=o_s[0], mu=o_s[1:1 + n], nu=o_s[1 + n:])
         self.episode = int(flat_state["meta/episode"])
         self.epsilon = float(flat_state["meta/epsilon"])
         self.n_updates = int(flat_state["meta/n_updates"])
@@ -927,13 +1077,17 @@ class DistributedTrainer:
     # evaluation / export
     # ------------------------------------------------------------ #
     def mean_params(self) -> Layers:
-        """The general model: worker-averaged ``[(w [in, out], b [out])]``."""
-        return _worker_layers(self._sync(self.params), 0)
+        """The general model: worker-averaged ``[(w [in, out], b [out])]``
+        over the live workers, on the mesh's first device."""
+        n = len(self._shards[0].params)
+        return [tuple(self._fleet_mean([sh.params[l][k] for sh in self._shards])
+                      for k in (0, 1)) for l in range(n)]
 
     def as_agent(self, epsilon: float = 0.0, seed: int = 1234) -> DQNAgent:
         """Materialise the general model as a single-model DQNAgent."""
-        net = QNetwork(hidden=[w.shape[2] for w, _ in self.params[:-1]],
-                       in_dim=self.params[0][0].shape[1], device=self.device,
+        layers = self._shards[0].params
+        net = QNetwork(hidden=[w.shape[2] for w, _ in layers[:-1]],
+                       in_dim=layers[0][0].shape[1], device=self.device,
                        layers=self.mean_params())
         agent = DQNAgent(replace(self.cfg.dqn, epsilon_initial=epsilon),
                          seed=seed, network=net, device=self.device)

@@ -3,13 +3,14 @@
 ``TokenBatcher`` produces ``{"tokens", "labels", "mask"}`` numpy batches
 from an id corpus, deterministic given the seed: an infinite iterator that
 reshuffles every epoch with the reference's ``np.random.default_rng(seed)``
-permutation, so its batches are the reference's bit for bit.  The train
-step moves a batch to the parameters' device.
+permutation, so its batches are the reference's bit for bit.  The LM
+train step moves a batch to the parameters' device.
 
-The reference's ``shard_batch`` places a host batch on a JAX mesh with the
-batch dim split over the ("pod", "data") axes; on one device there is
-nothing to split, so it has no counterpart here.  The multi-GPU slice
-(ROADMAP A6) brings the batch split across cards.
+``shard_batch`` splits a host batch's leading dim over a ``HostMesh``
+(``launch/mesh.py``) and returns one dict per shard on that shard's
+device, as the reference's places a batch on a JAX mesh with the batch
+dim split over its data axes.  The sharded RL trainer ships its replay
+batches through it.
 """
 
 from __future__ import annotations
@@ -17,6 +18,9 @@ from __future__ import annotations
 from typing import Iterator
 
 import numpy as np
+import torch
+
+from repro_torch.launch.mesh import HostMesh, shard_slices
 
 
 class TokenBatcher:
@@ -62,3 +66,16 @@ def lm_batches_from_smiles(
 ) -> Iterator[dict[str, np.ndarray]]:
     seqs = [tokenizer.encode(s) for s in smiles]
     return iter(TokenBatcher(seqs, batch_size, seq_len, pad_id=tokenizer.PAD, seed=seed))
+
+
+def shard_batch(batch: dict, mesh: HostMesh) -> list[dict[str, torch.Tensor]]:
+    """Split every leaf's leading dim over ``mesh``: shard ``s`` gets rows
+    ``shard_slices(n, mesh)[s]`` of each leaf (numpy or torch) as a tensor
+    on ``mesh.devices[s]``.  Raises when the leading dims differ or do not
+    divide the mesh."""
+    sizes = {int(v.shape[0]) for v in batch.values()}
+    if len(sizes) != 1:
+        raise ValueError(f"batch leaves disagree on the leading dim: {sorted(sizes)}")
+    slices = shard_slices(sizes.pop(), mesh)
+    return [{k: torch.as_tensor(v[sl]).to(dev) for k, v in batch.items()}
+            for sl, dev in zip(slices, mesh.devices)]

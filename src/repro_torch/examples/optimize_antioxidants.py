@@ -36,6 +36,7 @@ from repro_torch.core.distributed import (DistributedTrainer, greedy_optimize,
 from repro_torch.core.finetune import fine_tune
 from repro_torch.data.datasets import (antioxidant_dataset, dataset_property_table,
                                        train_test_split)
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.predictors import PropertyService
 from repro_torch.predictors.training import ensure_trained
 
@@ -77,7 +78,8 @@ def main(argv=None, *, cache_dir: str | None = None) -> None:
     network = QNetwork(hidden=(512, 128, 32), device="cpu",
                        generator=torch.Generator().manual_seed(cfg.seed))
     trainer = DistributedTrainer(cfg, train[:n_mols], service, rcfg,
-                                 network=network, device=args.device)
+                                 network=network,
+                                 mesh=make_host_mesh(device=args.device))
     trainer.train(log_every=10)
     trainer.close()
     print(f"trained in {time.time()-t0:.0f}s; cache hit rate {service.cache.hit_rate:.2f}")

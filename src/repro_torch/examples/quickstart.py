@@ -7,7 +7,7 @@ freshly-trained tiny agent.
 Walks the whole public API: dataset -> predictors -> environment -> DQN
 training -> greedy optimization -> filter script, on ``--device``
 (default ``cuda``).  Fleet acting goes through the ``packed_qnet_stacked``
-kernel (one launch per fleet step), greedy optimization through
+kernel (one launch per mesh shard per fleet step), greedy optimization through
 ``fused_qnet``.  ``main(argv, cache_dir=...)`` points ``ensure_trained`` at
 a predictor cache other than the default ``.cache/predictors_torch``.
 """
@@ -26,6 +26,7 @@ from repro_torch.core import (
 from repro_torch.core.agent import QNetwork
 from repro_torch.core.distributed import DistributedTrainer, greedy_optimize
 from repro_torch.data.datasets import antioxidant_dataset, dataset_property_table
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.predictors import PropertyService
 from repro_torch.predictors.training import ensure_trained
 
@@ -65,7 +66,8 @@ def main(argv=None, *, cache_dir: str | None = None) -> None:
     network = QNetwork(hidden=(256, 64), device="cpu",
                        generator=torch.Generator().manual_seed(cfg.seed))
     trainer = DistributedTrainer(cfg, mols[:4], service, rcfg,
-                                 network=network, device=args.device)
+                                 network=network,
+                                 mesh=make_host_mesh(device=args.device))
     for st in trainer.train(log_every=5):
         pass
     trainer.close()

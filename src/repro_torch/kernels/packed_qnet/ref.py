@@ -13,19 +13,24 @@ import torch
 
 from repro_torch.chem.fingerprint import FP_BITS
 from repro_torch.core.packed_batch import unpack_bits
+from repro_torch.kernels.fused_qnet.ref import qnet_ref
 
 
 def stacked_qnet_ref(x: torch.Tensor,
                      weights: Sequence[tuple[torch.Tensor, torch.Tensor]]
                      ) -> torch.Tensor:
     """x f32 [W, C, in], weights [(w [W, in, out], b [W, out])] -> q [W, C]:
-    worker w's rows under worker w's layers."""
-    h = x
-    for li, (w, b) in enumerate(weights):
-        h = torch.matmul(h, w) + b.unsqueeze(-2)
-        if li < len(weights) - 1:
-            h = torch.relu(h)
-    return h[..., 0]
+    worker w's rows under worker w's layers, one ``qnet_ref`` per worker.
+
+    Per worker, not one batched ``matmul``: a batched product's bits depend
+    on how many workers share the call (the CPU BLAS blocks a batch of 1
+    differently from a batch of 4), and the sharded trainer evaluates
+    ``W_pad / nd`` workers a call.  So a worker's Q depends only on its own
+    rows and layers, as each output of the kernel does."""
+    if x.shape[0] == 0:
+        return x.new_zeros(x.shape[:2])
+    return torch.stack([qnet_ref(x[w], [(wt[w], bt[w]) for wt, bt in weights])
+                        for w in range(x.shape[0])])
 
 
 def packed_qnet_stacked_ref(bits: torch.Tensor, frac: torch.Tensor,

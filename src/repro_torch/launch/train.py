@@ -3,10 +3,11 @@
 Two modes, as the reference's:
 
 * ``--mode rl`` (default; the paper): distributed DA-MolDQN over an
-  antioxidant dataset on one GPU.  The learned BDE and IP predictors are
+  antioxidant dataset on a mesh of every visible GPU (one shard each;
+  ``launch/mesh.py``).  The learned BDE and IP predictors are
   trained or loaded (``ensure_trained``) and serve every property batch
   through ``PropertyService``; ``DistributedTrainer`` acts through the
-  ``packed_qnet_stacked`` kernel (one launch per fleet env step) and
+  ``packed_qnet_stacked`` kernel (one launch per shard per fleet env step) and
   checkpoints its full state every ``--ckpt-every`` episodes into a
   ``CheckpointManager``; ``--resume`` continues bit for bit; the general
   model is scored by ``greedy_optimize`` (its Q dispatches through
@@ -105,6 +106,7 @@ def train_rl(args) -> None:
     from repro_torch.data.datasets import (antioxidant_dataset,
                                            dataset_property_table, load_dataset,
                                            train_test_split)
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.predictors import PropertyService
     from repro_torch.predictors.training import ensure_trained
 
@@ -132,8 +134,10 @@ def train_rl(args) -> None:
         scenarios=(tuple(args.scenarios.split(","))
                    if args.scenarios else None),
         dqn=DQNConfig(epsilon_decay=0.97))
+    # every visible card, as the reference launcher's make_host_mesh()
     trainer = DistributedTrainer(cfg, molecules, service, rcfg,
-                                 dataset_pool=dataset_pool, device=args.device)
+                                 dataset_pool=dataset_pool,
+                                 mesh=make_host_mesh(device=args.device))
     mgr = CheckpointManager(args.ckpt_dir)
     if args.resume:
         ep0 = trainer.restore_checkpoint(mgr)

@@ -1,10 +1,12 @@
 """Port of ``repro.launch.verify``: the truth run, one (rollout x learner x
-chem x sync) cell of the equivalence matrix, on one GPU.
+chem x sync) cell of the equivalence matrix, on an nd-shard mesh.
 
 Each invocation is one fresh process, one scenario, one ``.npz`` report:
 
     PYTHONPATH=src python -m repro_torch.launch.verify --out /tmp/v.npz \
         --rollout fleet_sharded --learner packed --chem incremental
+    PYTHONPATH=src python -m repro_torch.launch.verify --device cpu --nd 4 \
+        --out /tmp/nd4.npz
 
 The report carries what the reference's equivalence matrix pins:
 
@@ -33,15 +35,21 @@ reference (docs/robustness.md):
   budgets the report must be bit-identical to the fault-free run; the
   injected/retry counters in the report prove the faults actually fired.
 
+The mesh (``launch/mesh.py``): ``--nd`` shards out of a pool of
+``--device-pool`` devices, as the reference sizes a submesh of its forced
+host device pool; ``--nd`` above the pool exits non-zero.  On the CPU the
+pool is logical shards of ``cpu`` (default 8, the reference's); on CUDA it
+is ``--device-pool`` entries of the ``--device`` card (default ``--nd``),
+so every shard of the truth run shares one card.  Identical bits across nd
+is the acceptance criterion (``tests/test_torch_multidevice.py``), and a
+ragged W pads to the mesh with dead worker slots.
+
 What differs from the reference:
 
-* One device.  ``--nd`` takes 1 only; the nd in {2, 4} cells wait for the
-  multi-GPU port (ROADMAP A6), and any other value exits non-zero naming
-  it.  The reference forces a host device pool through ``XLA_FLAGS``
-  before jax initialises (``--device-pool`` and the module's preamble), so
-  that its nd = 1 and nd = 4 runs share one XLA client configuration.
-  That is a matter of XLA on the CPU with no counterpart here, so both are
-  left out, and so is the report's ``device_pool``.
+* The reference forces its pool through ``XLA_FLAGS`` before jax
+  initialises, so that its nd = 1 and nd = 4 runs share one XLA client
+  configuration.  Torch needs no setting before start-up: the pool is only
+  the bound on ``--nd`` and the devices the mesh takes.
 * ``warmup_compiles`` and ``recompiles_after_warmup`` count shape events:
   eager PyTorch compiles nothing, and what can still change after warmup
   is a capacity-ladder buffer growing or a kernel loaded at first use.
@@ -64,6 +72,7 @@ import signal
 
 import numpy as np
 
+DEFAULT_DEVICE_POOL = 8
 MOLS_SMILES = ("C1=CC=CC=C1O", "CC1=CC(C)=CC(C)=C1O",
                "CC1=CC=CC=C1O", "OC1=CC=CC=C1O")
 
@@ -140,10 +149,15 @@ def run(args, network=None):
     # test matrices use): identical answers in every process
     from repro_torch.predictors.service import OracleService
 
-    if args.nd != 1:
-        raise SystemExit(
-            f"FAIL: --nd {args.nd}: the port runs on one device; the "
-            f"nd in {{2, 4}} cells wait for the multi-GPU port (ROADMAP A6)")
+    from repro_torch.launch.mesh import make_host_mesh
+
+    pool = _device_pool(args)
+    if args.nd > pool:
+        raise SystemExit(f"FAIL: --nd {args.nd} > --device-pool {pool}")
+    if torch.device(args.device).type == "cpu":
+        mesh = make_host_mesh(args.nd, device=args.device)
+    else:
+        mesh = make_host_mesh(args.nd, pool=[args.device] * pool)
 
     counter = RecompileCounter.install()
     cfg = TrainerConfig(
@@ -175,8 +189,10 @@ def run(args, network=None):
         service = ResilientService(service, RetryPolicy(seed=args.fault_seed),
                                    fault_plan=plan, sleep=None)
     tr = DistributedTrainer(cfg, mols, service, RewardConfig(),
-                            network=network, fault_plan=plan,
-                            device=args.device)
+                            network=network, fault_plan=plan, mesh=mesh)
+    if tr.mesh.size != args.nd or tr.n_padded_workers % args.nd:
+        raise SystemExit(f"FAIL: trainer mesh {tr.mesh.size} x "
+                         f"{tr.n_padded_workers} workers for --nd {args.nd}")
 
     mgr = None
     if args.ckpt_dir:
@@ -220,7 +236,8 @@ def run(args, network=None):
 
     fault_stats = tr.engine.fault_stats()
     out = {
-        "n_devices": np.int64(1),
+        "n_devices": np.int64(tr.mesh.size),
+        "device_pool": np.int64(pool),
         "n_live_workers": np.int64(tr.n_live_workers),
         "n_padded_workers": np.int64(tr.n_padded_workers),
         # the trainer's checkpointed per-episode logs, so a resumed run's
@@ -251,6 +268,17 @@ def run(args, network=None):
     return out, tr
 
 
+def _device_pool(args) -> int:
+    """``--device-pool``, or its default: 8 logical shards on the CPU (the
+    reference's ``DEFAULT_DEVICE_POOL``), ``--nd`` entries of the card on
+    CUDA."""
+    import torch
+    if args.device_pool is not None:
+        return args.device_pool
+    return DEFAULT_DEVICE_POOL if torch.device(args.device).type == "cpu" \
+        else args.nd
+
+
 def run_scenario(args, network=None) -> dict:
     """The report arrays of one scenario (see ``run``)."""
     return run(args, network)[0]
@@ -260,8 +288,11 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="one truth-run scenario (see module docstring)")
     ap.add_argument("--nd", type=int, default=1,
-                    help="mesh size; 1 only until the multi-GPU port "
-                         "(ROADMAP A6)")
+                    help="mesh size: the first nd devices of the pool")
+    ap.add_argument("--device-pool", type=int, default=None,
+                    help="devices the mesh is cut from (default: 8 logical "
+                         "shards on the CPU, --nd entries of the card on "
+                         "CUDA); --nd above it exits non-zero")
     ap.add_argument("--out", required=True, help="output .npz report path")
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--mols-per-worker", type=int, default=2)

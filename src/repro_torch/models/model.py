@@ -22,9 +22,10 @@ the SSD scan go through the hand-written CUDA kernels, exactly where the
 reference goes through Pallas; they are forward only and refuse autograd,
 so ``loss_fn`` trains through the plain routes, as the reference does.
 There is no
-sharding: the port runs on one device, so the reference's
-sequence-parallel constraint (``_seq_shard``), ``param_pspecs`` and
-``add_fsdp`` have no counterpart.
+sharding: an LM runs on one device (the trainer's mesh,
+``launch/mesh.py``, is the DA-MolDQN fleet's, and the LM step over a mesh
+waits for ROADMAP A7), so the reference's sequence-parallel constraint
+(``_seq_shard``), ``param_pspecs`` and ``add_fsdp`` have no counterpart.
 
 Decode (``serve_step``) is plain PyTorch, as the reference's is plain
 JAX.  It writes the new key and value into the KV cache's ring slot and the

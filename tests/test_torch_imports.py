@@ -171,6 +171,29 @@ def test_port_has_the_lm_train_slice():
     assert not stubs, stubs
 
 
+def test_port_has_the_multidevice_slice():
+    """The sharded trainer: the mesh helpers and ``shard_batch``, importable
+    without JAX or ``repro``; no port file still waits for the multi-GPU
+    port or refuses ``--nd`` above 1."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert "src/repro_torch/launch/mesh.py" in names
+    code = ("import sys; "
+            "from repro_torch.launch.mesh import HostMesh, make_host_mesh, "
+            "padded_worker_count, shard_slices, batch_axes, mesh_tp; "
+            "from repro_torch.data.pipeline import shard_batch; "
+            "import repro_torch.core.distributed, repro_torch.launch.verify; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
+            "assert not bad, bad; print('clean')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+    stubs = [p for p in PORT_FILES if "multi-GPU port" in p.read_text()
+             or "ROADMAP A6)" in p.read_text()]
+    assert not stubs, stubs
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[p.relative_to(ROOT).as_posix() for p in PORT_FILES])
 def test_no_jax_or_repro_import(path):

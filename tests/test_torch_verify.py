@@ -11,7 +11,11 @@
   checkpoint, a ``--resume`` child finishes the run, and its report equals
   the straight run's bit for bit on every key but ``meta`` and the
   shape-event counters; both have 0 shape events after warmup.
-* ``--nd 2`` exits non-zero and names ROADMAP A6.
+* At nd = 2: ONE ``python -m repro.launch.verify --nd 2`` child at the
+  same cell and epsilon 1, and the port's ``--nd 2`` run in process from
+  the same weights: the same keys as at nd = 1 (``n_devices`` 2 and the
+  pool of 8 included) equal bit for bit, losses and parameters within the
+  same tolerances.  ``--nd`` above ``--device-pool`` exits non-zero.
 * The shape-event counter counts each growth of a capacity ladder: the
   fleet view's, the serve dispatch buffer's and the predictor service's.
 
@@ -39,7 +43,8 @@ SRC = REPO / "src"
 CHILD_TIMEOUT_S = 600
 LOSS_RTOL = 1e-4
 PARAM_TOL = 1e-4
-EXACT = ("n_devices", "n_live_workers", "n_padded_workers", "rewards",
+EXACT = ("n_devices", "device_pool", "n_live_workers", "n_padded_workers",
+         "rewards",
          "transition_digests", "replay_state_digests", "n_transitions",
          "n_faults_injected", "n_retries", "n_timeouts", "n_quarantined",
          "n_chem_retries", "n_pipeline_restarts", "n_incidents")
@@ -63,22 +68,19 @@ def _args(*argv: str):
     return verify.parser().parse_args(["--out", "unused", "--device", "cpu", *argv])
 
 
-def test_port_report_matches_the_reference_child(tmp_path):
-    flags = ("--epsilon-decay", "1.0", "--faults", "predict,chem")
-    res = _child("repro.launch.verify", tmp_path / "ref.npz", "--nd", "1", *flags)
+def _against_the_reference_child(tmp_path, *flags: str) -> tuple[dict, dict]:
+    """The reference child's report and the port's, in process from the
+    reference trainer's initial weights (worker 0 of its vmapped init)."""
+    res = _child("repro.launch.verify", tmp_path / "ref.npz", *flags)
     assert res.returncode == 0, res.stdout + res.stderr
     want = _load(tmp_path / "ref.npz")
-    # the reference trainer's initial weights: worker 0 of its vmapped init
     keys = jax.random.split(jax.random.PRNGKey(0), 4)
     p = jax.vmap(JaxQNetwork(hidden=(32,)).init)(keys)
     p0 = jax.tree_util.tree_map(lambda x: np.asarray(x[0]), p)
     got = verify.run_scenario(_args(*flags), network=params_from_jax(p0, device="cpu"))
-
-    assert set(got) == set(want) - {"device_pool"}
+    assert set(got) == set(want)
     for k in EXACT:
         assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), k
-    assert int(got["n_faults_injected"]) > 0 and int(got["n_retries"]) > 0
-    assert int(got["n_chem_retries"]) > 0
     np.testing.assert_allclose(got["losses"], want["losses"], rtol=LOSS_RTOL,
                                err_msg=f"losses within {LOSS_RTOL} rel")
     params = sorted(k for k in want if k.startswith("param_"))
@@ -88,6 +90,15 @@ def test_port_report_matches_the_reference_child(tmp_path):
         np.testing.assert_allclose(
             got[k], want[k], atol=PARAM_TOL, rtol=PARAM_TOL,
             err_msg=f"{k} within {PARAM_TOL} abs + {PARAM_TOL} rel")
+    return got, want
+
+
+def test_port_report_matches_the_reference_child(tmp_path):
+    flags = ("--nd", "1", "--epsilon-decay", "1.0", "--faults", "predict,chem")
+    got, want = _against_the_reference_child(tmp_path, *flags)
+    assert int(got["n_devices"]) == 1
+    assert int(got["n_faults_injected"]) > 0 and int(got["n_retries"]) > 0
+    assert int(got["n_chem_retries"]) > 0
     assert int(got["recompiles_after_warmup"]) == 0
     assert int(want["recompiles_after_warmup"]) == 0
 
@@ -114,11 +125,22 @@ def test_killed_then_resumed_run_is_bit_identical(tmp_path):
     assert int(want["recompiles_after_warmup"]) == 0
 
 
-def test_nd_other_than_one_names_the_multi_gpu_item(tmp_path):
+def test_port_nd2_report_matches_the_reference_nd2_child(tmp_path):
+    """The reference's ``fleet_sharded / packed / incremental / packed /
+    episode`` cell at nd = 2 of its forced pool of 8, at epsilon 1."""
+    got, want = _against_the_reference_child(
+        tmp_path, "--nd", "2", "--epsilon-decay", "1.0")
+    assert int(got["n_devices"]) == 2 and int(got["device_pool"]) == 8
+    assert int(got["n_padded_workers"]) == 4
+    assert int(got["recompiles_after_warmup"]) == 0
+    assert int(want["recompiles_after_warmup"]) == 0
+
+
+def test_nd_above_the_pool_exits_non_zero(tmp_path):
     with pytest.raises(SystemExit) as e:
-        verify.main(["--nd", "2", "--out", str(tmp_path / "x.npz"),
-                     "--device", "cpu"])
-    assert "A6" in str(e.value.code)
+        verify.main(["--nd", "3", "--device-pool", "2", "--out",
+                     str(tmp_path / "x.npz"), "--device", "cpu"])
+    assert str(e.value.code) == "FAIL: --nd 3 > --device-pool 2"
     assert not (tmp_path / "x.npz").exists()
     assert verify.parser().parse_args(["--out", "x"]).device == "cuda"
 
