@@ -107,7 +107,14 @@ Phases, each of which exits non-zero on failure:
              views of one conv-output buffer) and a misaligned bf16
              attention view raises; kernel, plain, library
              (``scaled_dot_product_attention`` for causal attention; none
-             for the scan) and bound times.  ``packed_qnet`` (the W = 1
+             for the scan) and bound times.  Attention also at head dim 256
+             (paligemma-3b; small MQA, window and prefix shapes, and ragged
+             edges) and at the new families' path shapes, bf16 and f32:
+             paligemma-3b (B 2, S 2304, 8 heads over 1 kv head of 256,
+             causal, prefix 256), whisper-large-v3's encoder (B 2, S 1500,
+             20 heads of 64, bidirectional) and mixtral-8x22b (B 1, S 8192,
+             48 heads over 8 of 128, causal, window 4096), each timed beside
+             one SDPA call with its boolean mask.  ``packed_qnet`` (the W = 1
              launch of the packed kernel) against its plain version and bit
              for bit against ``fused_qnet`` on the densified rows.
 8. lm      - zamba2-1.2b, then mamba2-2.7b, at full width with seeded
@@ -122,6 +129,22 @@ Phases, each of which exits non-zero on failure:
              forward, finite logits, a bit-identical rerun, tokens/s and
              each kernel's share; then ``python -m repro_torch.launch.serve``
              at its defaults must exit 0.
+8a. lm_families - the moe, encdec and vlm families (and yi-34b's GQA of
+             ratio 7), each at its published width with seeded random
+             weights made on the card, depth cut only where one card cannot
+             hold the model: paligemma-3b (18 layers, B 2, 256 patches +
+             2048 tokens), whisper-large-v3 (32 + 32 layers, B 2, 1500
+             frames + 448 tokens), and 2 layers of mixtral-8x22b (B 1,
+             S 8192: the window bites), qwen3-moe-235b-a22b and yi-34b (B 1,
+             S 4096).  Per config: the f32 kernel route against the plain
+             route at 2 layers (within 1e-3 of max |logits|, the aux loss
+             alike); the bf16 prefill through ``make_prefill_step`` with
+             exactly 18 / 64 / 2 / 2 / 2 ``flash_attention`` launches, finite
+             logits, a bit-identical rerun, positions/s from CUDA events and
+             a ``torch.profiler`` table; 8 ``serve_step`` decode steps of the
+             reduced f32 config on the card against the CPU (1e-4), and for
+             the moe and dense configs against the card's forward at the
+             positions its capacity did not drop.
 
 10. lm_train - the LM training step, after lm has freed its memory.  On
              the card a ``use_pallas`` loss on parameters that require grad
@@ -214,20 +237,37 @@ FAULT_KEYS = ("n_faults_injected", "n_retries", "n_timeouts", "n_quarantined",
 # LM slice: zamba2-1.2b's prefill shapes, and tests/test_kernels.py's
 # tolerances for the Pallas kernels (flash :20-21, :57; ssd :89-90, :102-103)
 LM_ARCH = "zamba2-1.2b"
-SSM_ARCH = "mamba2-2.7b"        # the pure-SSM model: N = 128, 64 layers
 FLASH_PATH = (2, 4096, 32, 32, 64)              # B, S, H, K, D; causal
 FLASH_SMALL = (                                  # B, S, H, K, D, causal, window, prefix
     (2, 256, 4, 2, 64, True, None, 0), (1, 128, 4, 4, 128, True, None, 0),
     (2, 256, 8, 1, 64, True, None, 0), (1, 512, 2, 2, 32, True, None, 0),
     (1, 256, 4, 2, 64, True, 64, 0), (1, 256, 4, 2, 64, True, None, 32),
     (1, 256, 4, 2, 64, True, 32, 16), (1, 256, 4, 2, 64, False, None, 0),
-    (1, 200, 4, 2, 64, True, None, 0))
+    (1, 200, 4, 2, 64, True, None, 0),
+    # GQA ratios 7 (yi-34b) and 16 (qwen3-moe-235b-a22b), the second windowed
+    (1, 256, 14, 2, 128, True, None, 0), (1, 256, 32, 2, 128, True, 64, 0),
+    # D = 256 (paligemma-3b): MQA with a window and a prefix, MQA with a prefix
+    (1, 256, 4, 1, 256, True, 64, 16), (2, 200, 8, 1, 256, True, None, 16))
 # bf16 tiles are 128 queries x 64 keys: ragged edges, a window and a prefix
 # that cut tiles, GQA with Sq != Sk
 FLASH_EDGES = (                                  # B, Sq, Sk, H, K, D, causal, window, prefix
     (1, 320, 320, 4, 2, 64, True, 96, 0), (1, 384, 384, 4, 2, 64, True, None, 130),
     (2, 200, 264, 8, 2, 64, True, None, 0), (1, 320, 320, 4, 4, 128, True, 96, 0),
-    (1, 264, 200, 2, 1, 32, False, None, 0))
+    (1, 264, 200, 2, 1, 32, False, None, 0),
+    (1, 300, 300, 2, 1, 256, True, None, 37), (1, 130, 260, 4, 2, 256, False, None, 0))
+# the attention path shapes of the LM prefills: arch, site (whisper's
+# encoder and decoder self-attentions differ), B, S, H, K, D, causal,
+# window, prefix, whether SDPA takes k and v as they are (enable_gqa) or
+# expanded to H heads outside the timed call (at mixtral's S a GQA call
+# with a mask would fall back to scores of 6.4-12.9 GB)
+FLASH_PATHS = (
+    (LM_ARCH, "", *FLASH_PATH, True, None, 0, True),
+    ("paligemma-3b", "", 2, 2304, 8, 1, 256, True, None, 256, True),
+    ("whisper-large-v3", "encoder", 2, 1500, 20, 20, 64, False, None, 0, True),
+    ("whisper-large-v3", "decoder", 2, 448, 20, 20, 64, True, None, 0, True),
+    ("mixtral-8x22b", "", 1, 8192, 48, 8, 128, True, 4096, 0, False),
+    ("qwen3-moe-235b-a22b", "", 1, 4096, 64, 4, 128, True, None, 0, True),
+    ("yi-34b", "", 1, 4096, 56, 8, 128, True, None, 0, True))
 # the path shape before the bf16 kernel moved to tensor cores (PERF.md §6)
 FFMA_FLASH_MS = {"bfloat16": 5.7809, "float32": 5.8006}
 # the scan at the zamba2 path shape before the chunk-parallel kernel (PERF.md §6)
@@ -258,8 +298,6 @@ SSD_STAGES_TOL = {"float32": 1e-5, "bfloat16": 2e-3}
 # chunk, the model's own f32 rounding floor
 LM_ROUTE_TOL = 1e-3
 DECODE_TOL = 2e-2               # tests/test_models.py:210
-LM_PREFILL = (2, 4096)          # B, S: the train_4k length
-LM_ROUTE = (1, 512)
 LM_DECODE = 256
 PACKED_ROWS = (2048, 4096)
 LM_TRAIN_ARCHS = ("stablelm-1.6b", "zamba2-1.2b", "mamba2-2.7b")  # reduced, card vs CPU
@@ -268,6 +306,22 @@ LM_TRAIN_STEPS = 3
 LM_LOSS_RTOL = 1e-5             # card vs CPU, f32
 LM_GRAD_TOL = 1e-4              # of each gradient leaf's max |g|
 LM_TRAIN_TIMEOUT_S = 600
+# the LM cells of the lm and lm_families phases, each config at its
+# published width, depth cut only where one card cannot hold it: arch;
+# decoder (and encoder) layers of the bf16 prefill (None: all), its B and
+# text tokens (B 2 x 4096: the train_4k length; whisper's 448: its target
+# length); layers of the f32 route parity (None: all), its B and text
+# tokens (mixtral's window bites at 8192)
+LM_CELLS = {
+    "lm": (("zamba2-1.2b", None, 2, 4096, None, 1, 512),
+           ("mamba2-2.7b", None, 2, 4096, None, 1, 512)),
+    "lm_families": (("paligemma-3b", None, 2, 2048, 2, 1, 256),
+                    ("whisper-large-v3", None, 2, 448, 2, 1, 448),
+                    ("mixtral-8x22b", 2, 1, 8192, 2, 1, 8192),
+                    ("qwen3-moe-235b-a22b", 2, 1, 4096, 2, 1, 512),
+                    ("yi-34b", 2, 1, 4096, 2, 1, 512))}
+REDUCED_DECODE = 8              # steps of each reduced config, card vs CPU
+REDUCED_DECODE_TOL = 1e-4       # abs + rel, f32
 
 # dense peaks by card (NVIDIA data sheets): f32 FMA FLOP/s, HBM bytes/s,
 # bf16 tensor-core FLOP/s
@@ -1496,9 +1550,9 @@ def _ssd_case(B, L, H, P, G, N, dtype, seed):
 
 def phase_lm_kernels(peak) -> tuple[list[dict], dict]:
     """``flash_attention`` and ``ssd_scan`` against their plain versions.
-    Returns the records and the bf16 path-shape kernel times."""
+    Returns the records and, per arch, each bf16 path-shape kernel's
+    ``(name, launches a forward at that shape, ms)``."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
@@ -1539,40 +1593,7 @@ def phase_lm_kernels(peak) -> tuple[list[dict], dict]:
     print(f"flash_attention strided bf16 views: max_abs_err {err:.3e}; a "
           f"misaligned bf16 view raises ValueError", flush=True)
 
-    B, S, H, K, D = FLASH_PATH
-    pairs = B * H * _attn_pairs(S, S, True, None, 0)
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[1]
-        q, k, v = _flash_case(B, S, S, H, K, D, dtype, 100)
-        o = flash_attention(q, k, v, causal=True)
-        err = _check_close(f"flash_attention path {name}", o,
-                           plain_attn(q, k, v, causal=True), FLASH_TOL[name])
-        if not torch.equal(flash_attention(q, k, v, causal=True), o):
-            fail(f"flash_attention path {name}: two launches differ")
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-        lib_err = float((lib.transpose(1, 2).float() - o.float()).abs().max())
-        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), 10)
-        path_ms[("flash_attention", name)] = ms
-        esize = q.element_size()
-        rows.append(_row(
-            "flash_attention", "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention/flash_attention.py:99",
-            [B, S, H, K, D], None, err, ms,
-            cuda_ms(lambda: plain_attn(q, k, v, causal=True), 3, warmup=1),
-            cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 10),
-            4.0 * D * pairs, esize * (2 * B * S * H * D + 2 * B * S * K * D),
-            peak[2] if dtype == torch.bfloat16 else peak[0], peak, dtype=name,
-            arch=LM_ARCH, bound_f32_ffma_ms=4.0 * D * pairs / peak[0] * 1e3,
-            library_vs_kernel_max_abs=lib_err))
-        r = rows[-1]
-        print(f"flash_attention path B={B} S={S} H={H} K={K} D={D} causal {name}: "
-              f"max_abs_err {err:.3e} (SDPA vs kernel {lib_err:.3e}) | kernel "
-              f"{ms:.4f} ms (all-FFMA kernel: {FFMA_FLASH_MS[name]} ms), plain "
-              f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), f32 FFMA bound "
-              f"{r['bound_f32_ffma_ms']:.4f} ms", flush=True)
-        del q, k, v, qt, kt, vt, o, lib
+    rows += _flash_path_rows(peak, plain_attn, path_ms)
 
     def check_ssd(tag, x, dt, A, Bm, Cm, Q, stages=False):
         """The kernel against ssd_ref within SSD_TOL (and, with ``stages``,
@@ -1632,7 +1653,9 @@ def phase_lm_kernels(peak) -> tuple[list[dict], dict]:
                                      SSD_TOL[name]))
             del y, st, yc, sc
             ms = cuda_ms(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=Q), 20)
-            path_ms[("ssd_scan", name, arch)] = ms
+            if dtype == torch.bfloat16:
+                path_ms.setdefault(arch, []).append(
+                    ("ssd_scan", _lm_launches(_cell_cfg(arch))["ssd_scan"], ms))
             es = x.element_size()
             nbytes = es * (2 * x.numel() + Bm.numel() + Cm.numel() + B * H * P * N) \
                 + 4 * (dt.numel() + A.numel())
@@ -1660,6 +1683,79 @@ def phase_lm_kernels(peak) -> tuple[list[dict], dict]:
     return rows, path_ms
 
 
+def _flash_path_rows(peak, plain_attn, path_ms) -> list[dict]:
+    """``flash_attention`` at every LM prefill's attention shape
+    (FLASH_PATHS), bf16 and f32: held to its plain version, a rerun
+    bit-identical, timed beside SDPA (one call on the same inputs) and the
+    bound; the bf16 times go into ``path_ms``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models.layers import make_attn_mask
+
+    rows = []
+    for i, (arch, site, B, S, H, K, D, causal, window, prefix, gqa) in enumerate(
+            FLASH_PATHS):
+        mk = dict(causal=causal, window=window, prefix_len=prefix)
+        pairs = B * H * _attn_pairs(S, S, causal, window, prefix)
+        mask = make_attn_mask(S, S, device="cuda", **mk) if (window or prefix) else None
+        cfg = _cell_cfg(arch)
+        enc = cfg.encdec.n_enc_layers if cfg.encdec else 0
+        at_shape = enc if site == "encoder" else _lm_launches(cfg)["flash_attention"] - enc
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            tag = (f"flash_attention {arch} {site + ' ' if site else ''}path B={B} "
+                   f"S={S} H={H} K={K} D={D} {mk} {name}")
+            q, k, v = _flash_case(B, S, S, H, K, D, dtype, 600 + i)
+            o = flash_attention(q, k, v, **mk)
+            err = _check_close(tag, o, plain_attn(q, k, v, **mk), FLASH_TOL[name])
+            if not torch.equal(flash_attention(q, k, v, **mk), o):
+                fail(f"{tag}: two launches differ")
+            qt = q.transpose(1, 2).contiguous()
+            kt, vt = (t.transpose(1, 2).contiguous() if gqa else
+                      t.repeat_interleave(H // K, dim=2).transpose(1, 2).contiguous()
+                      for t in (k, v))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+                    enable_gqa=gqa and K != H)
+            lib_err = float((sdpa().transpose(1, 2).float() - o.float()).abs().max())
+            ms = cuda_ms(lambda: flash_attention(q, k, v, **mk), 10)
+            if dtype == torch.bfloat16:
+                path_ms.setdefault(arch, []).append(("flash_attention", at_shape, ms))
+            rows.append(_row(
+                "flash_attention",
+                "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention/flash_attention.py:99",
+                [B, S, H, K, D], None, err, ms,
+                cuda_ms(lambda: plain_attn(q, k, v, **mk), 2, warmup=1),
+                cuda_ms(sdpa, 5, warmup=2), 4.0 * D * pairs,
+                q.element_size() * (2 * B * S * H * D + 2 * B * S * K * D),
+                peak[2] if dtype == torch.bfloat16 else peak[0], peak, dtype=name,
+                arch=arch, **({"site": site} if site else {}), mask=mk, pairs=pairs,
+                launches_at_shape=at_shape,
+                bound_f32_ffma_ms=4.0 * D * pairs / peak[0] * 1e3,
+                library_vs_kernel_max_abs=lib_err,
+                library_call="scaled_dot_product_attention(" + ", ".join(
+                    ["enable_gqa"] * (gqa and K != H)
+                    + ["k, v expanded to H heads"] * (not gqa and K != H)
+                    + ["boolean attn_mask"] * (mask is not None)
+                    + ["is_causal"] * (causal and mask is None)) + ")"))
+            r = rows[-1]
+            print(f"{tag}: max_abs_err {err:.3e} (SDPA vs kernel {lib_err:.3e}), "
+                  f"rerun bit-identical | kernel {ms:.4f} ms"
+                  + (f" (all-FFMA kernel: {FFMA_FLASH_MS[name]} ms)" if arch == LM_ARCH
+                     else "")
+                  + f", plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), f32 FFMA bound "
+                  f"{r['bound_f32_ffma_ms']:.4f} ms, {pairs / 1e6:.1f} M pairs, "
+                  f"{at_shape} launches a forward at this shape", flush=True)
+            del q, k, v, qt, kt, vt, o
+            torch.cuda.empty_cache()
+    return rows
+
+
 def _profile_top(fn, top: int = 12, what: str = "lm: torch.profiler over one prefill") -> None:
     """Device time by kernel over one call of ``fn``, from torch.profiler."""
     import torch
@@ -1680,72 +1776,146 @@ def _profile_top(fn, top: int = 12, what: str = "lm: torch.profiler over one pre
               f"{e.key[:100]}", flush=True)
 
 
-def _lm_route_parity(cfg, params, rng, arch) -> None:
-    """The f32 kernel route against the plain route at LM_ROUTE, within
-    LM_ROUTE_TOL of max |logits|, printed beside the plain route against
-    itself with half the SSD chunk (the model's own f32 rounding floor)."""
+def _lm_cfg(arch: str, layers):
+    """The published config, its decoder (and encoder) depth cut to
+    ``layers`` where given."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if layers is None:
+        return cfg
+    enc = replace(cfg.encdec, n_enc_layers=layers) if cfg.encdec else None
+    return replace(cfg, n_layers=layers, encdec=enc)
+
+
+def _cell_cfg(arch: str):
+    """The config of ``arch``'s LM cell at the depth of its bf16 prefill."""
+    return _lm_cfg(arch, next(c[1] for cells in LM_CELLS.values()
+                              for c in cells if c[0] == arch))
+
+
+def _lm_launches(cfg) -> dict:
+    """Each LM kernel's launches in one ``use_pallas`` forward on the card:
+    one ``flash_attention`` per self-attention application (the encoder's
+    too; cross-attention is plain, as in the reference), one ``ssd_scan``
+    call per SSM layer."""
+    from repro_torch.models.model import hybrid_n_apps
+    attn = {"hybrid": hybrid_n_apps(cfg) if cfg.family == "hybrid" else 0,
+            "ssm": 0}.get(cfg.family, cfg.n_layers)
+    return {"flash_attention": attn + (cfg.encdec.n_enc_layers if cfg.encdec else 0),
+            "ssd_scan": cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0}
+
+
+def _prefill_batch(cfg, B: int, S: int, seed: int, device) -> dict:
+    """Tokens [B, S] in [1, vocab) from ``default_rng(seed)``, with the stub
+    frames or patches the LM launcher feeds (``with_stub_inputs``)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.train import with_stub_inputs
+    tokens = np.random.default_rng(seed).integers(1, cfg.vocab, (B, S))
+    batch = next(with_stub_inputs(cfg, [{"tokens": tokens}]))
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def _positions_run(cfg, B: int, S: int) -> int:
+    """Positions one forward runs: text, plus the image prefix or the
+    encoder frames."""
+    extra = cfg.vlm.n_patches if cfg.family == "vlm" else \
+        cfg.encdec.n_frames if cfg.family == "encdec" else 0
+    return B * (S + extra)
+
+
+def _lm_route_parity(tag: str, arch: str, layers, B: int, S: int):
+    """The f32 kernel route against the plain route at full width and
+    ``layers`` (None: all), within LM_ROUTE_TOL of max |logits|, the aux
+    loss alike, with exactly ``_lm_launches`` launches; where the config
+    has an SSM, printed beside the plain route against itself with half the
+    SSD chunk (the model's own f32 rounding floor).  Returns the f32 config
+    and its parameters."""
     from dataclasses import replace
 
     import torch
-    from repro_torch.models import forward_train
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.models import count_params, forward_train, init_params
 
-    f32 = replace(cfg, dtype="float32")
-    B, S = LM_ROUTE
-    tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (B, S))).cuda()
-    lk, _ = forward_train(params, replace(f32, use_pallas=True), {"tokens": tokens})
-    lp, _ = forward_train(params, f32, {"tokens": tokens})
-    half = replace(f32, ssm=replace(f32.ssm, chunk=f32.ssm.chunk // 2))
-    lc, _ = forward_train(params, half, {"tokens": tokens})
+    cfg = replace(_lm_cfg(arch, layers), dtype="float32")
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = _prefill_batch(cfg, B, S, 1, "cuda")
+    flash_attention.launches = ssd_scan.launches = 0
+    lk, aux_k = forward_train(params, replace(cfg, use_pallas=True), batch)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": flash_attention.launches,
+                "ssd_scan": ssd_scan.launches}
+    if launches != _lm_launches(cfg):
+        fail(f"{tag}: {arch} f32 kernel route made {launches} launches, want "
+             f"{_lm_launches(cfg)}")
+    lp, aux_p = forward_train(params, cfg, batch)
     scale = float(lp.abs().max())
-    route_err = float((lk - lp).abs().max())
-    floor = float((lc - lp).abs().max())
-    print(f"lm: {arch} f32 kernel route vs plain route at B={B} S={S}: max abs "
-          f"{route_err:.3e} on logits of max |.| {scale:.3f} "
-          f"({route_err / scale:.3e} of it); plain route with "
-          f"{half.ssm.chunk}-chunks vs {f32.ssm.chunk}-chunks: {floor:.3e} "
-          f"({floor / scale:.3e})", flush=True)
-    if not bool(torch.isfinite(lk).all()) or route_err > LM_ROUTE_TOL * scale:
-        fail(f"lm: {arch} kernel route differs from the plain route by "
-             f"{route_err:.3e} > {LM_ROUTE_TOL} x {scale:.3f}")
+    err = float((lk - lp).abs().max())
+    msg = (f"{tag}: {arch} f32, {cfg.n_layers} layers at full width "
+           f"({count_params(cfg):,} parameters, init on the card {init_s:.2f} s), "
+           f"B={B} S={S}: kernel route vs plain route max abs {err:.3e} on logits "
+           f"of max |.| {scale:.3f} ({err / scale:.3e} of it), aux "
+           f"{float(aux_k):.6f} vs {float(aux_p):.6f}, launches {launches}")
+    if cfg.ssm is not None:
+        half = replace(cfg, ssm=replace(cfg.ssm, chunk=cfg.ssm.chunk // 2))
+        lc, _ = forward_train(params, half, batch)
+        floor = float((lc - lp).abs().max())
+        msg += (f"; plain route with {half.ssm.chunk}-chunks vs {cfg.ssm.chunk}-"
+                f"chunks: {floor:.3e} ({floor / scale:.3e})")
+        del lc
+    print(msg, flush=True)
+    if not bool(torch.isfinite(lk).all()) or err > LM_ROUTE_TOL * scale:
+        fail(f"{tag}: {arch} kernel route differs from the plain route by "
+             f"{err:.3e} > {LM_ROUTE_TOL} x {scale:.3f}")
+    if abs(float(aux_k) - float(aux_p)) > LM_ROUTE_TOL * max(abs(float(aux_p)), 1e-6):
+        fail(f"{tag}: {arch} aux loss differs between the routes")
+    del lk, lp
+    return cfg, params
 
 
-def _lm_prefill(cfg, rng, path_ms, arch) -> dict:
-    """The timed bf16 prefill at LM_PREFILL through ``make_prefill_step``:
-    exactly one ``flash_attention`` launch per attention application and
-    one ``ssd_scan`` call per SSM layer, finite logits, a bit-identical
-    rerun, tokens/s and each kernel's share.  Returns the launch counts."""
+def _lm_prefill(tag: str, arch: str, B: int, S: int, path_ms, card: str) -> dict:
+    """The cell's bf16 prefill at full width through ``make_prefill_step``
+    with ``use_pallas``: exactly ``_lm_launches`` launches, [B, S, V] finite
+    logits, a bit-identical rerun; timed with CUDA events and the host
+    clock, each path kernel's share, the profiler table.  Returns the
+    launches."""
     from dataclasses import replace
 
     import torch
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
     from repro_torch.launch.steps import make_prefill_step
-    from repro_torch.models import init_params
-    from repro_torch.models.model import hybrid_n_apps
+    from repro_torch.models import count_params, init_params
 
-    n_apps = hybrid_n_apps(cfg) if cfg.family == "hybrid" else 0
-    n_ssm = cfg.n_layers
-    kcfg = replace(cfg, use_pallas=True)
-    params = init_params(kcfg, 0, device="cuda")
-    B, S = LM_PREFILL
-    batch = {"tokens": torch.from_numpy(rng.integers(1, cfg.vocab, (B, S))).cuda()}
-    prefill = make_prefill_step(kcfg)
+    cfg = replace(_cell_cfg(arch), use_pallas=True)
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = _prefill_batch(cfg, B, S, 0, "cuda")
+    prefill = make_prefill_step(cfg)
     flash_attention.launches = ssd_scan.launches = 0
     logits = prefill(params, batch)
     torch.cuda.synchronize()
     launches = {"flash_attention": flash_attention.launches,
                 "ssd_scan": ssd_scan.launches}
-    if launches != {"flash_attention": n_apps, "ssd_scan": n_ssm}:
-        fail(f"lm: one {arch} forward made {launches} launches, want {n_apps} "
-             f"flash_attention and {n_ssm} ssd_scan")
-    if not bool(torch.isfinite(logits).all()):
-        fail(f"lm: {arch} bf16 prefill logits are not finite")
-    again = prefill(params, batch)
-    if not torch.equal(again, logits):
-        fail(f"lm: {arch} bf16 prefill rerun is not bit-identical")
-    del again
-    fwd_ms = cuda_ms(lambda: prefill(params, batch), 3, warmup=1)
+    if launches != _lm_launches(cfg):
+        fail(f"{tag}: one {arch} forward made {launches} launches, want "
+             f"{_lm_launches(cfg)}")
+    if tuple(logits.shape) != (B, S, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        fail(f"{tag}: {arch} bf16 prefill logits {tuple(logits.shape)} are not "
+             f"[B, S, V] or not finite")
+    if not torch.equal(prefill(params, batch), logits):
+        fail(f"{tag}: {arch} bf16 prefill rerun is not bit-identical")
+    del logits
+    ms = cuda_ms(lambda: prefill(params, batch), 3, warmup=1)
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -1754,85 +1924,132 @@ def _lm_prefill(cfg, rng, path_ms, arch) -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     wall = min(walls)
-    fa_ms = path_ms[("flash_attention", "bfloat16")] if n_apps else 0.0
-    ss_ms = path_ms[("ssd_scan", "bfloat16", arch)]
-    fa_share, ss_share = n_apps * fa_ms / fwd_ms, n_ssm * ss_ms / fwd_ms
-    print(f"lm: {arch} bf16 prefill B={B} S={S} (use_pallas): "
-          f"{fwd_ms:.2f} ms per forward (CUDA events) = "
-          f"{B * S / fwd_ms * 1e3:.0f} tokens/s; host clock {wall * 1e3:.2f} ms "
-          f"= {B * S / wall:.0f} tokens/s | per forward {launches['flash_attention']}"
-          f" flash_attention x {fa_ms:.3f} ms = {100 * fa_share:.1f}%, "
-          f"{launches['ssd_scan']} ssd_scan x {ss_ms:.3f} ms = "
-          f"{100 * ss_share:.1f}%, the rest {100 * (1 - fa_share - ss_share):.1f}% "
-          f"| rerun bit-identical, logits finite, peak memory "
+    pos = _positions_run(cfg, B, S)
+    shares = [(k, n, t, n * t / ms) for k, n, t in path_ms.get(arch, ())]
+    print(f"{tag}: {arch} bf16 prefill, {cfg.n_layers} layers"
+          + (f" + {cfg.encdec.n_enc_layers} encoder" if cfg.encdec else "")
+          + f" at full width ({count_params(cfg):,} parameters, init {init_s:.2f} s), "
+          f"B={B} S={S}: {ms:.2f} ms per forward (CUDA events) = "
+          f"{pos / ms * 1e3:.0f} positions/s ({B * S / ms * 1e3:.0f} text "
+          f"tokens/s); host clock {wall * 1e3:.2f} ms on {card} | per forward "
+          + ", ".join(f"{n} {k} x {t:.3f} ms = {100 * f:.1f}%" for k, n, t, f in shares)
+          + f", the rest {100 * (1 - sum(f for *_, f in shares)):.1f}% | launches "
+          f"{launches}, rerun bit-identical, logits finite, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    _profile_top(lambda: prefill(params, batch))
-    del params, logits
+    _profile_top(lambda: prefill(params, batch), top=12 if tag == "lm" else 8,
+                 what=f"{tag}: torch.profiler over one {arch} prefill")
+    del params
     torch.cuda.empty_cache()
     return launches
 
 
-def phase_lm(path_ms) -> dict:
-    """zamba2-1.2b at full width: route parity, decode parity, the timed
-    bf16 prefill and the launcher; then mamba2-2.7b at full width: route
-    parity and the timed bf16 prefill.  Returns each kernel's launch count
-    per model, ``{(kernel, arch): n}``."""
+def _lm_decode_vs_forward(cfg, params) -> None:
+    """LM_DECODE f32 decode steps at full width against the kernel-route
+    forward on the same tokens, within DECODE_TOL (the hybrid)."""
     from dataclasses import replace
 
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_serve_step
-    from repro_torch.models import (count_params, forward_train, init_cache,
-                                    init_params)
+    from repro_torch.models import forward_train, init_cache
 
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab, (1, LM_DECODE))).cuda()
+    full, _ = forward_train(params, replace(cfg, use_pallas=True), {"tokens": tokens})
+    step = make_serve_step(cfg)
+    cache = init_cache(cfg, 1, LM_DECODE, device="cuda")
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(LM_DECODE):
+        lg, cache = step(params, cache, tokens[:, t:t + 1])
+        outs.append(lg[:, 0])
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    dec = torch.stack(outs, dim=1)
+    dec_err = float((dec - full).abs().max())
+    if not bool(((dec - full).abs() <= DECODE_TOL + DECODE_TOL * full.abs()).all()):
+        fail(f"lm: decode differs from forward by {dec_err:.3e} (> "
+             f"{DECODE_TOL} abs + rel)")
+    print(f"lm: {LM_DECODE} f32 decode steps vs the kernel-route forward: "
+          f"max abs {dec_err:.3e} (within {DECODE_TOL}); "
+          f"{LM_DECODE / dec_s:.1f} tok/s at B=1 (host clock)", flush=True)
+
+
+def _reduced_decode(tag: str, arch: str) -> None:
+    """REDUCED_DECODE decode steps of the reduced f32 config on the card and
+    on the CPU from the same parameters: logits within REDUCED_DECODE_TOL.
+    For the dense and moe families also against the kernel-route forward
+    on the card at the positions its capacity did not drop (all, dense),
+    as tests/test_models.py::test_decode_matches_forward_moe holds them."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_cache, init_params, serve_step
+
+    cfg = get_config(arch).reduced()
+    cpu = init_params(cfg, 2, device="cpu")
+    gpu = _to_cuda(cpu)
+    tokens = _prefill_batch(cfg, 1, REDUCED_DECODE, 2, "cpu")["tokens"]
+    caches = {d: init_cache(cfg, 1, REDUCED_DECODE, device=d) for d in ("cpu", "cuda")}
+    outs = {"cpu": [], "cuda": []}
+    for t in range(REDUCED_DECODE):
+        for d, params in (("cpu", cpu), ("cuda", gpu)):
+            lg, caches[d] = serve_step(params, cfg, caches[d], tokens[:, t:t + 1].to(d))
+            outs[d].append(lg[:, 0].cpu())
+    dec, ref = torch.stack(outs["cuda"], 1), torch.stack(outs["cpu"], 1)
+    err = float((dec - ref).abs().max())
+    if not bool(((dec - ref).abs() <= REDUCED_DECODE_TOL * (1 + ref.abs())).all()):
+        fail(f"{tag}: {arch} reduced decode on the card differs from the CPU's "
+             f"by {err:.3e}")
+    msg = (f"{tag}: {arch} reduced f32, {REDUCED_DECODE} decode steps on the "
+           f"card vs the CPU: max abs {err:.3e}")
+    if cfg.family in ("dense", "moe"):
+        full = make_prefill_step(replace(cfg, use_pallas=True))(
+            gpu, {"tokens": tokens.cuda()}).cpu()
+        per_pos = (dec - full).abs().amax(dim=-1)[0]
+        matched = per_pos < 1e-3
+        need = REDUCED_DECODE if cfg.family == "dense" else REDUCED_DECODE // 2
+        if not bool(matched[0]) or int(matched.sum()) < need:
+            fail(f"{tag}: {arch} decode vs forward per position {per_pos.tolist()}")
+        msg += (f"; vs the kernel-route forward {int(matched.sum())} of "
+                f"{REDUCED_DECODE} positions within 1e-3 (the rest dropped at "
+                f"capacity by the grouped forward)" if cfg.family == "moe" else
+                f"; vs the kernel-route forward max abs {float(per_pos.max()):.3e}")
+    print(msg, flush=True)
+
+
+def _to_cuda(tree):
+    return {k: _to_cuda(v) if isinstance(v, dict) else v.cuda() for k, v in tree.items()}
+
+
+def _lm_cells(tag: str, path_ms, card: str) -> dict:
+    """Each cell of ``LM_CELLS[tag]``: the f32 route parity (and the
+    hybrid's full-width decode vs forward on its parameters), the timed
+    bf16 prefill, the reduced decode card vs CPU.  Returns each kernel's
+    launches a forward, ``{(kernel, arch): n}``."""
+    import torch
     out = {}
-    for arch in (LM_ARCH, SSM_ARCH):
-        cfg = get_config(arch)
-        rng = np.random.default_rng(0)
-        f32 = replace(cfg, dtype="float32")
-        t0 = time.perf_counter()
-        params = init_params(f32, 0, device="cuda")
-        torch.cuda.synchronize()
-        print(f"lm: {arch} {count_params(cfg):,} parameters, f32 init on the "
-              f"card in {time.perf_counter() - t0:.2f} s", flush=True)
-
-        # 1. kernel route vs plain route, f32
-        _lm_route_parity(cfg, params, rng, arch)
-
-        # 2. decode vs forward, f32 (the hybrid)
+    for arch, _, B, S, route_layers, rB, rS in LM_CELLS[tag]:
+        cfg, params = _lm_route_parity(tag, arch, route_layers, rB, rS)
         if arch == LM_ARCH:
-            tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (1, LM_DECODE))).cuda()
-            full, _ = forward_train(params, replace(f32, use_pallas=True),
-                                    {"tokens": tokens})
-            step = make_serve_step(f32)
-            cache = init_cache(f32, 1, LM_DECODE, device="cuda")
-            outs = []
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for t in range(LM_DECODE):
-                lg, cache = step(params, cache, tokens[:, t:t + 1])
-                outs.append(lg[:, 0])
-            torch.cuda.synchronize()
-            dec_s = time.perf_counter() - t0
-            dec = torch.stack(outs, dim=1)
-            dec_err = float((dec - full).abs().max())
-            if not bool(((dec - full).abs() <= DECODE_TOL + DECODE_TOL * full.abs()).all()):
-                fail(f"lm: decode differs from forward by {dec_err:.3e} (> "
-                     f"{DECODE_TOL} abs + rel)")
-            print(f"lm: {LM_DECODE} f32 decode steps vs the kernel-route forward: "
-                  f"max abs {dec_err:.3e} (within {DECODE_TOL}); "
-                  f"{LM_DECODE / dec_s:.1f} tok/s at B=1 (host clock)", flush=True)
-            del full, dec, outs, cache
+            _lm_decode_vs_forward(cfg, params)
         del params
         torch.cuda.empty_cache()
-
-        # 3. the timed bf16 prefill through the kernels
-        for name, n in _lm_prefill(cfg, rng, path_ms, arch).items():
+        for name, n in _lm_prefill(tag, arch, B, S, path_ms, card).items():
             out[(name, arch)] = n
+        _reduced_decode(tag, arch)
+        torch.cuda.empty_cache()
+    return out
 
-    # 4. the launcher at its defaults
+
+def phase_lm(path_ms, card: str) -> dict:
+    """zamba2-1.2b and mamba2-2.7b at full width (``_lm_cells``), then the
+    LM serve launcher at its defaults."""
     import os
+    out = _lm_cells("lm", path_ms, card)
     env = dict(os.environ, PYTHONPATH=str(SRC))
     res = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"],
                          env=env, cwd=ROOT, capture_output=True, text=True,
@@ -1841,6 +2058,15 @@ def phase_lm(path_ms) -> dict:
         fail(f"lm: python -m repro_torch.launch.serve exited {res.returncode}:\n"
              f"{res.stderr[-2000:]}")
     print("lm: launcher: " + " | ".join(res.stdout.strip().splitlines()), flush=True)
+    return out
+
+
+def phase_lm_families(path_ms, card: str) -> dict:
+    """The moe, encdec and vlm families (and yi-34b's GQA 7) through
+    ``_lm_cells``."""
+    t0 = time.perf_counter()
+    out = _lm_cells("lm_families", path_ms, card)
+    print(f"lm_families: {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
 
@@ -2203,7 +2429,8 @@ def main() -> None:
     rows += stacked_rows
     rows += phase_packed_kernel(peak)
     lm_rows, path_ms = phase_lm_kernels(peak)
-    launches = phase_lm(path_ms)
+    launches = phase_lm(path_ms, card)
+    launches.update(phase_lm_families(path_ms, card))
     for r in lm_rows:
         r["launches"] = launches[(r["name"], r["arch"])]
     rows += lm_rows

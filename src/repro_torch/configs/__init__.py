@@ -1,10 +1,9 @@
 """Port of ``repro.configs``: the architecture registry and the scenario
 registry (``scenarios.py``).
 
-So far the registry holds the architectures whose families the port's
-model zoo runs (dense, ssm, hybrid): ``zamba2-1.2b``, ``stablelm-1.6b`` and
-``mamba2-2.7b``.  The other reference configs come with their families
-(ROADMAP A7).
+The registry holds every LM architecture of the reference (dense, moe,
+ssm, hybrid, encdec and vlm families).  The paper's own Q-network config
+(``damoldqn``, the qnet family) comes with the dry-run slice (ROADMAP A7).
 """
 
 from repro_torch.configs.base import (
@@ -13,9 +12,16 @@ from repro_torch.configs.base import (
 )
 
 # import for registration side effects
+import repro_torch.configs.qwen3_moe_235b_a22b  # noqa: F401
 import repro_torch.configs.zamba2_1p2b          # noqa: F401
 import repro_torch.configs.stablelm_1p6b        # noqa: F401
+import repro_torch.configs.granite_34b          # noqa: F401
 import repro_torch.configs.mamba2_2p7b          # noqa: F401
+import repro_torch.configs.yi_34b               # noqa: F401
+import repro_torch.configs.mixtral_8x22b        # noqa: F401
+import repro_torch.configs.whisper_large_v3     # noqa: F401
+import repro_torch.configs.paligemma_3b         # noqa: F401
+import repro_torch.configs.granite_20b          # noqa: F401
 
 __all__ = [
     "ArchConfig", "MoEConfig", "SSMConfig", "EncDecConfig", "VLMConfig",

@@ -2,9 +2,10 @@
 SMILES language model (reduced config).
 
 The same train step the launcher runs (``launch/steps.make_train_step``)
-on a reduced config over the antioxidant SMILES corpus: the loss should
-drop from ~ln(vocab) toward the corpus entropy within ~100 steps, and the
-run fails if the last loss is not below the first.
+on a reduced config over the antioxidant SMILES corpus (with the
+reference's stub frames or patches for encdec and vlm configs): the loss
+should drop from ~ln(vocab) toward the corpus entropy within ~100 steps,
+and the run fails if the last loss is not below the first.
 
     PYTHONPATH=src python -m repro_torch.examples.backbone_lm --arch mamba2-2.7b --steps 100
     PYTHONPATH=src python -m repro_torch.examples.backbone_lm --device cpu --steps 20
@@ -20,7 +21,7 @@ import argparse
 import time
 
 from repro_torch.configs import get_config
-from repro_torch.launch.train import lm_batches, lm_loop
+from repro_torch.launch.train import lm_batches, lm_loop, with_stub_inputs
 from repro_torch.models import init_params
 
 
@@ -41,8 +42,8 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch).reduced()
     params = init_params(cfg, 0, device=args.device)
     t0 = time.time()
-    losses = lm_loop(cfg, params, lm_batches(args.batch, args.seq), args.steps,
-                     log_every=20)
+    losses = lm_loop(cfg, params, with_stub_inputs(cfg, lm_batches(args.batch, args.seq)),
+                     args.steps, log_every=20)
     print(f"loss {losses[0]:.3f} -> {losses[-1]:.3f} in {args.steps} steps "
           f"({time.time()-t0:.0f}s)")
     if not losses[-1] < losses[0]:

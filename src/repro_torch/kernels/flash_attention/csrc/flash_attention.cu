@@ -57,6 +57,16 @@
 //   * Causal balance: block x walks the query tiles from the last (most
 //     live key tiles) to the first, all heads and batches of a tile before
 //     the next tile, so the long blocks start first.
+//   * Head dim 256 (paligemma-3b).  Held in registers, q's fragments would
+//     take 64 registers a thread beside the 128 of the [16, 256] f32
+//     accumulator and the 32 of the score tile: past the 255 a thread can
+//     have once addressing is counted, so it would spill.  At D = 256 the
+//     fragments are instead re-read with ldmatrix from the q tile, which
+//     stays in shared memory for the block's life, once per 16-wide k-step
+//     of each key tile (one ldmatrix beside the four of k it already
+//     issues).  The tiles stay 128 x 64, so the mask rules and the causal
+//     order are the same code: q's 66 KB and the 132 KB k/v ring are
+//     198 KB of shared memory, one block of 8 warps an SM.
 //   * What still bounds it: mma.sync issues from registers fed by ldmatrix,
 //     one warp at a time, with the loads done by the same warps that
 //     multiply; wgmma with TMA and a producer warp is the next step.
@@ -69,7 +79,9 @@
 // registers (4 rows x D/16 columns per thread).  Empty key tiles are skipped
 // as above.  Rows of k and q are padded to D + 1 floats so the k-row reads
 // of a warp fall in 16 different banks.  TF32 or bf16 products could not
-// meet the f32 tolerance of 2e-5, so this route stays in FFMA.
+// meet the f32 tolerance of 2e-5, so this route stays in FFMA.  At D = 256
+// a thread holds 4 x 16 accumulators and the block 209 KB of shared memory
+// (q and k padded, v, p), under the 227 KB opt-in limit: one block an SM.
 //
 // Determinism.  Every sum has a fixed order (d = 0..D-1 and keys in tile
 // order in the f32 route, the mma's fixed internal order in the bf16 route,
@@ -356,7 +368,12 @@ fa_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int wqmax = min(wq0 + 15, Sq - 1);
   const int row0 = wq0 + g, row1 = row0 + 8;
 
-  uint32_t qf[KD][4];
+  // q's A fragments: all KD of them in registers up to D = 128; at D = 256
+  // one, re-read from Qs at each k-step (see the header)
+  constexpr bool QREG = D <= 128;
+  const __nv_bfloat16* q_frag_s =
+      Qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+  uint32_t qf[QREG ? KD : 1][4];
   float acc[NO][4];
 #pragma unroll
   for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
@@ -374,11 +391,9 @@ fa_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_wait<1>();                     // all but the newest group landed
     __syncthreads();
 
-    if (!have_q) {
+    if (QREG && !have_q) {
 #pragma unroll
-      for (int kd = 0; kd < KD; ++kd)
-        ldsm_x4(qf[kd], Qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                            kd * 16 + (lane >> 4) * 8);
+      for (int kd = 0; kd < (QREG ? KD : 1); ++kd) ldsm_x4(qf[kd], q_frag_s + kd * 16);
       have_q = true;
     }
 
@@ -391,15 +406,18 @@ fa_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-      for (int kd = 0; kd < KD; ++kd)
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t(&a)[4] = qf[QREG ? kd : 0];
+        if (!QREG) ldsm_x4(a, q_frag_s + kd * 16);
 #pragma unroll
         for (int np = 0; np < NS / 2; ++np) {
           uint32_t r[4];
           ldsm_x4(r, kt_s + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kd * 16 +
                          ((lane >> 3) & 1) * 8);
-          mma_bf16(s[2 * np], qf[kd], r[0], r[1]);
-          mma_bf16(s[2 * np + 1], qf[kd], r[2], r[3]);
+          mma_bf16(s[2 * np], a, r[0], r[1]);
+          mma_bf16(s[2 * np + 1], a, r[2], r[3]);
         }
+      }
 
       const bool full = tile_full(wq0, wq0 + 15, k0, Sk, mk);
       float mx0 = NEG_INF, mx1 = NEG_INF;
@@ -509,7 +527,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // dtype 0 = float32, 1 = bfloat16 (q, k, v and o alike); head_dim in
-// {32, 64, 128}; strides in elements, D contiguous (for bf16 the pointers
+// {32, 64, 128, 256}; strides in elements, D contiguous (for bf16 the pointers
 // and strides are 16-byte multiples); scale is D^-0.5 as the caller rounds
 // it to f32; window <= 0 means none.
 // Returns the launch's CUDA error (0 when it was accepted).
@@ -534,12 +552,14 @@ int flash_attention_forward(int dtype, int head_dim, const void* q,
       case 32: return launch_f32<32>(FA_ARGS);
       case 64: return launch_f32<64>(FA_ARGS);
       case 128: return launch_f32<128>(FA_ARGS);
+      case 256: return launch_f32<256>(FA_ARGS);
     }
   } else if (dtype == 1) {
     switch (head_dim) {
       case 32: return launch_bf16<32>(FA_ARGS);
       case 64: return launch_bf16<64>(FA_ARGS);
       case 128: return launch_bf16<128>(FA_ARGS);
+      case 256: return launch_bf16<256>(FA_ARGS);
     }
   }
 #undef FA_ARGS

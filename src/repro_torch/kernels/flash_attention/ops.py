@@ -25,7 +25,7 @@ from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.flash_attention import build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)   # 256: paligemma-3b
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -4,8 +4,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
         --batch 4 --prompt-len 8 --new-tokens 16
 
-Runs prefill (token-by-token fill of the KV/state cache, as the reference
-does) then greedy decode, printing tokens/s on the host clock with the
+Any registered config (every family; encdec and vlm decode from the
+reference's zero cross K/V and image-prefix slots).  Runs prefill
+(token-by-token fill of the KV/state cache, as the reference does) then
+greedy decode, printing tokens/s on the host clock with the
 device synchronised at both ends.  The flags are the reference's, quirk
 included: ``--reduced`` is ``store_true`` with default True, so the
 launcher always runs the reduced config.
@@ -19,14 +21,14 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.device import resolve_device
 from repro_torch.models import init_cache, init_params, serve_step
 
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="stablelm-1.6b")
+    ap.add_argument("--arch", default="stablelm-1.6b", choices=list_archs())
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=8)

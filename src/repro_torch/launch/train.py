@@ -13,11 +13,14 @@ Two modes, as the reference's:
   model is scored by ``greedy_optimize`` (its Q dispatches through
   ``fused_qnet``) and the paper's OFR (Eq. 2).
 
-* ``--mode lm --arch <id>``: train a model-zoo backbone (dense, ssm or
-  hybrid; ``--reduced`` for the CPU-sized variant) as a SMILES language
+* ``--mode lm --arch <id>``: train a model-zoo backbone (any registered
+  config; ``--reduced`` for the CPU-sized variant) as a SMILES language
   model with ``make_train_step``, on the reference's corpus (canonical
-  SMILES of ``antioxidant_dataset(256)``) and batches.  It trains through
-  the plain routes, as the reference does: the LM kernels are forward only.
+  SMILES of ``antioxidant_dataset(256)``) and batches; encdec configs get
+  stub encoder frames and vlm configs stub image patches, standard normals
+  from ``np.random.default_rng(0)`` drawn every step, as in the reference.
+  It trains through the plain routes, as the reference does: the LM
+  kernels are forward only.
 
     PYTHONPATH=src python -m repro_torch.launch.train --mode rl --episodes 40
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
@@ -36,6 +39,8 @@ from __future__ import annotations
 import argparse
 import json
 import time
+
+import numpy as np
 
 from repro_torch.checkpoint import CheckpointManager
 
@@ -174,6 +179,23 @@ def lm_batches(batch: int, seq: int):
     return lm_batches_from_smiles(smiles, SmilesTokenizer(), batch, seq)
 
 
+def with_stub_inputs(cfg, batches):
+    """``batches`` with the encdec family's stub frames ``[B, n_frames,
+    d_model]`` or the vlm's stub patches ``[B, n_patches, vision_dim]``
+    added to each, f32 standard normals from one ``np.random.default_rng(0)``
+    drawn batch by batch, as the reference launcher feeds them."""
+    rng = np.random.default_rng(0)
+    for batch in batches:
+        B = batch["tokens"].shape[0]
+        if cfg.family == "encdec":
+            batch["frames"] = rng.standard_normal(
+                (B, cfg.encdec.n_frames, cfg.d_model)).astype(np.float32)
+        if cfg.family == "vlm":
+            batch["patches"] = rng.standard_normal(
+                (B, cfg.vlm.n_patches, cfg.vlm.vision_dim)).astype(np.float32)
+        yield batch
+
+
 def lm_loop(cfg, params, batches, steps: int, *, log_every: int = 10):
     """``steps`` train steps of ``make_train_step(cfg)`` from ``params``;
     prints ``[step N] loss`` at step 1 and every ``log_every`` steps, and
@@ -194,7 +216,6 @@ def lm_loop(cfg, params, batches, steps: int, *, log_every: int = 10):
 
 
 def train_lm(args) -> None:
-    """The moe, encdec and vlm families raise in ``init_params`` (ROADMAP A7)."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
 
@@ -202,7 +223,8 @@ def train_lm(args) -> None:
     if args.reduced:
         cfg = cfg.reduced()
     params = init_params(cfg, 0, device=args.device)
-    losses = lm_loop(cfg, params, lm_batches(args.batch, args.seq), args.steps)
+    batches = with_stub_inputs(cfg, lm_batches(args.batch, args.seq))
+    losses = lm_loop(cfg, params, batches, args.steps)
     print(json.dumps({"final_loss": losses[-1], "steps": args.steps}))
 
 

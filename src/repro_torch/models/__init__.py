@@ -1,8 +1,9 @@
-"""Port of ``repro.models``: the model zoo for the dense, ssm and hybrid
-families, as plain functions over parameter trees.
+"""Port of ``repro.models``: the model zoo for the dense, moe, ssm, hybrid,
+encdec and vlm families, as plain functions over parameter trees.
 
     init_params(cfg, seed, device=)          random params on the device
     count_params(cfg)                        from a shape-only tree
+    active_params(cfg)                       per token (MoE: top_k of E experts)
     params_from_numpy(tree, device=)         the reference's params, bit for bit
     params_to_numpy(params)                  and back
     forward_train(params, cfg, batch)        -> (logits, aux)
@@ -13,15 +14,15 @@ families, as plain functions over parameter trees.
 With ``cfg.use_pallas`` the full-sequence forward runs attention and the
 SSD scan through the hand-written CUDA kernels, which are forward only
 (``loss_fn`` trains through the plain routes, as the reference does).  The
-moe, encdec and vlm families come with ROADMAP A7.
+qnet family's config comes with ROADMAP A7.
 """
 
 from repro_torch.models.model import (
     init_params, forward_train, loss_fn, init_cache, serve_step, count_params,
-    params_from_numpy, params_to_numpy,
+    active_params, params_from_numpy, params_to_numpy,
 )
 
 __all__ = [
     "init_params", "forward_train", "loss_fn", "init_cache", "serve_step",
-    "count_params", "params_from_numpy", "params_to_numpy",
+    "count_params", "active_params", "params_from_numpy", "params_to_numpy",
 ]

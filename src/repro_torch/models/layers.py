@@ -202,17 +202,32 @@ def attn_forward(
     causal: bool = True,
     window: int | None = None,
     prefix_len: int = 0,
+    kv_override: tuple[torch.Tensor, torch.Tensor] | None = None,
+    rope: bool = True,
     use_pallas: bool = False,
 ) -> torch.Tensor:
-    """Self-attention with RoPE ([B, S, D] -> [B, S, D]).  Cross-attention
-    (``kv_override``, no RoPE) comes with the encdec family (ROADMAP A7)."""
-    q = apply_rope(_proj(x, p["wq"]), positions, theta)
-    k = apply_rope(_proj(x, p["wk"]), positions, theta)
-    v = _proj(x, p["wv"])
+    """Self-attention ([B, S, D] -> [B, S, D]), or cross-attention when
+    ``kv_override=(k, v)`` is given (precomputed by ``cross_kv``: no RoPE on
+    them, and RoPE on q only if ``rope``)."""
+    q = _proj(x, p["wq"])
+    if kv_override is None:
+        k, v = _proj(x, p["wk"]), _proj(x, p["wv"])
+        if rope:
+            q = apply_rope(q, positions, theta)
+            k = apply_rope(k, positions, theta)
+    else:
+        k, v = kv_override
+        if rope:
+            q = apply_rope(q, positions, theta)
     out = gqa_attention(q, k, v, causal=causal, window=window,
                         prefix_len=prefix_len, use_pallas=use_pallas)
     wo = p["wo"]
     return out.reshape(*out.shape[:-2], -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def cross_kv(p: dict, memory: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V from encoder memory [B, T, D]: [B, T, K, Dh] each."""
+    return _proj(memory, p["wk"]), _proj(memory, p["wv"])
 
 
 # ------------------------------------------------------------------ #

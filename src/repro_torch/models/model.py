@@ -1,11 +1,14 @@
-"""Port of ``repro.models.model``: model assembly for the dense, ssm and
-hybrid families, forward, the LM loss and one-token decode.
+"""Port of ``repro.models.model``: model assembly for every LM family,
+forward, the LM loss and one-token decode.
 
-Families here: dense (stablelm), ssm (mamba2), hybrid (zamba2: mamba2
-blocks + one shared attention block applied every ``shared_attn_every``
-layers).  The moe, encdec and vlm families raise ``NotImplementedError``
-until they are ported (ROADMAP A7); the qnet family lives in
-``repro_torch.core``.
+Families: dense (stablelm, yi, granite), moe (mixtral, qwen3-moe: attention
++ a GShard MoE layer, ``models/moe.py``), ssm (mamba2), hybrid (zamba2:
+mamba2 blocks + one shared attention block applied every
+``shared_attn_every`` layers), encdec (whisper: stub frame embeddings ->
+bidirectional encoder -> decoder with cross-attention), vlm (paligemma:
+stub patch embeddings -> projector -> prefix-LM decoder over the image
+prefix and the text).  The qnet family lives in ``repro_torch.core``; its
+config (``damoldqn``) comes with ROADMAP A7, and it raises here.
 
 Parameters are the reference's tree: nested dicts, per-layer leaves
 stacked on a leading ``[L, ...]`` axis, each leaf in its own type (the SSM's
@@ -19,7 +22,9 @@ backward; ``unbind``'s backward stacks the layers' gradients once).  With
 ``cfg.remat`` and grad enabled each block is checkpointed, as the
 reference's ``_stack_scan`` does.  With ``cfg.use_pallas`` attention and
 the SSD scan go through the hand-written CUDA kernels, exactly where the
-reference goes through Pallas; they are forward only and refuse autograd,
+reference goes through Pallas (every self-attention, the encoder's
+bidirectional one included; whisper's cross-attention stays plain, as the
+reference passes no ``use_pallas`` there); they are forward only and refuse autograd,
 so ``loss_fn`` trains through the plain routes, as the reference does.
 There is no
 sharding: an LM runs on one device (the trainer's mesh,
@@ -32,7 +37,9 @@ JAX.  It writes the new key and value into the KV cache's ring slot and the
 new conv window and SSM state into their stacked cache tensors IN PLACE
 (the reference returns fresh arrays): at long contexts the cache is the
 model's largest tensor, and a copy per token would double it.  The cache's
-``pos`` is a Python int, so the ring slot needs no device sync.
+``pos`` is a Python int, so the ring slot needs no device sync.  As in the
+reference, nothing fills the encdec cross K/V or the vlm image-prefix slots
+of a fresh cache: decode attends to those zeros (ROADMAP C3).
 """
 
 from __future__ import annotations
@@ -48,17 +55,20 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as Lyr
+from repro_torch.models import moe as Moe
 from repro_torch.models import ssm as Ssm
 
 PyTree = Any
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 
 
 def _require_family(cfg: ArchConfig) -> None:
-    if cfg.family not in FAMILIES:
+    if cfg.family == "qnet":
         raise NotImplementedError(
-            f"the {cfg.family} family is not ported yet (ROADMAP A7); the port "
-            f"runs {FAMILIES}")
+            "the qnet family's model needs configs/damoldqn.py, which is not "
+            "ported yet (ROADMAP A7); the DQN lives in repro_torch.core")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family}")
 
 
 # ================================================================== #
@@ -68,15 +78,21 @@ def _ones(lead, n, dtype, device):
     return torch.ones((*lead, n), dtype=dtype, device=device)
 
 
-def _block_init(gen, cfg: ArchConfig, dtype, *, lead=(), device=None) -> dict:
-    """One transformer block (attn + mlp) param group."""
+def _block_init(gen, cfg: ArchConfig, dtype, *, cross: bool = False, lead=(),
+                device=None) -> dict:
+    """One transformer block (attn [+ cross-attn] + mlp/moe) param group."""
     kw = dict(lead=lead, device=device)
     p = {
         "norm1": _ones(lead, cfg.d_model, dtype, device),
         "attn": Lyr.attn_params_init(gen, cfg, dtype, **kw),
         "norm2": _ones(lead, cfg.d_model, dtype, device),
     }
-    if cfg.d_ff > 0:
+    if cross:
+        p["norm_x"] = _ones(lead, cfg.d_model, dtype, device)
+        p["cross"] = Lyr.attn_params_init(gen, cfg, dtype, **kw)
+    if cfg.family == "moe":
+        p["moe"] = Moe.moe_params_init(gen, cfg, dtype, **kw)
+    elif cfg.d_ff > 0:
         p["mlp"] = Lyr.mlp_params_init(gen, cfg.d_model, cfg.d_ff, cfg.act,
                                        dtype, **kw)
     return p
@@ -120,12 +136,24 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
     if not cfg.tied_embeddings:
         params["unembed"] = Lyr.dense_init(gen, (cfg.d_model, cfg.vocab), dtype, **kw)
     lead = (cfg.n_layers,)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         params["blocks"] = _block_init(gen, cfg, dtype, lead=lead, **kw)
+    elif cfg.family == "encdec":
+        params["blocks"] = _block_init(gen, cfg, dtype, cross=True, lead=lead, **kw)
+        params["enc_blocks"] = _block_init(gen, cfg, dtype,
+                                           lead=(cfg.encdec.n_enc_layers,), **kw)
+        params["enc_pos"] = Lyr.dense_init(gen, (cfg.encdec.n_frames, cfg.d_model),
+                                           dtype, 0.02, **kw)
+        params["enc_final_norm"] = _ones((), cfg.d_model, dtype, device)
     else:
         params["blocks"] = _mamba_block_init(gen, cfg, dtype, lead=lead, **kw)
     if cfg.family == "hybrid":
         params["shared_attn"] = _hybrid_shared_init(gen, cfg, dtype, **kw)
+    if cfg.family == "vlm":
+        params["vision_proj"] = {
+            "w": Lyr.dense_init(gen, (cfg.vlm.vision_dim, cfg.d_model), dtype, **kw),
+            "b": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
+        }
     return params
 
 
@@ -146,6 +174,17 @@ def _leaves(tree: PyTree):
 def count_params(cfg: ArchConfig) -> int:
     """Parameter count from a shape-only (``meta``) tree: no allocation."""
     return sum(math.prod(t.shape) for t in _leaves(init_params(cfg, device="meta")))
+
+
+def active_params(cfg: ArchConfig) -> int:
+    """Parameters touched per token (MoE: top_k of E experts)."""
+    total = count_params(cfg)
+    if cfg.moe is None:
+        return total
+    # expert weights are [E, D, F] x3 per layer
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    expert_total = cfg.n_layers * 3 * cfg.d_model * cfg.d_ff * E
+    return total - expert_total + expert_total * K // E
 
 
 # ------------------------------------------------------------------ #
@@ -205,15 +244,36 @@ def _unstack(tree: PyTree, n: int) -> list[PyTree]:
 # ================================================================== #
 # forward passes
 # ================================================================== #
-def _dense_block_fwd(cfg: ArchConfig, p: dict, h: torch.Tensor,
-                     positions) -> torch.Tensor:
+def _dense_block_fwd(cfg: ArchConfig, p: dict, h: torch.Tensor, positions,
+                     aux: torch.Tensor, *, causal: bool = True,
+                     prefix_len: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     x = Lyr.rms_norm(h, p["norm1"], cfg.norm_eps)
     h = h + Lyr.attn_forward(p["attn"], x, positions, theta=cfg.rope_theta,
-                             window=cfg.attn_window, use_pallas=cfg.use_pallas)
+                             causal=causal, window=cfg.attn_window,
+                             prefix_len=prefix_len, use_pallas=cfg.use_pallas)
     x = Lyr.rms_norm(h, p["norm2"], cfg.norm_eps)
-    if "mlp" in p:
+    if "moe" in p:
+        y, a = Moe.moe_forward(p["moe"], x, cfg)
+        h = h + y
+        aux = aux + a
+    elif "mlp" in p:
         h = h + Lyr.mlp_forward(p["mlp"], x, cfg.act)
-    return h
+    return h, aux
+
+
+def _dec_block_fwd(cfg: ArchConfig, p: dict, h: torch.Tensor, positions,
+                   memory: torch.Tensor) -> torch.Tensor:
+    """An encdec decoder block: causal self-attention (the kernel with
+    ``use_pallas``), plain cross-attention over the encoder memory, MLP."""
+    x = Lyr.rms_norm(h, p["norm1"], cfg.norm_eps)
+    h = h + Lyr.attn_forward(p["attn"], x, positions, theta=cfg.rope_theta,
+                             causal=True, use_pallas=cfg.use_pallas)
+    x = Lyr.rms_norm(h, p["norm_x"], cfg.norm_eps)
+    h = h + Lyr.attn_forward(p["cross"], x, positions, theta=cfg.rope_theta,
+                             causal=False, kv_override=Lyr.cross_kv(p["cross"], memory),
+                             rope=False)
+    x = Lyr.rms_norm(h, p["norm2"], cfg.norm_eps)
+    return h + Lyr.mlp_forward(p["mlp"], x, cfg.act)
 
 
 def _mamba_block_fwd(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
@@ -236,28 +296,54 @@ def forward_train(params: PyTree, cfg: ArchConfig,
     return _unembed(params, cfg, h), aux
 
 
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+
+
+def _embed(params: PyTree, tokens) -> torch.Tensor:
+    """Token embeddings; ``tokens`` ([B, S] ints) moved to the parameters'
+    device.  F.embedding, not embed[tokens]: the same rows, and a backward
+    that sums each row's gradients in a fixed order (index_put's accumulate
+    does not)."""
+    embed = params["embed"]
+    return F.embedding(torch.as_tensor(tokens, device=embed.device).long(), embed)
+
+
+def _batch_input(batch: dict, key: str, like: torch.Tensor) -> torch.Tensor:
+    """``batch[key]`` (an array or tensor of stub embeddings) in the
+    model's type on its device."""
+    return torch.as_tensor(batch[key]).to(device=like.device, dtype=like.dtype)
+
+
 def forward_hidden(params: PyTree, cfg: ArchConfig,
                    batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Final-norm hidden states [B,S,D].  ``batch["tokens"]`` is a [B, S]
-    int tensor or array; it is moved to the parameters' device."""
+    """Final-norm hidden states [B,S,D] (text positions only for the vlm)
+    and the aux loss.  ``batch["tokens"]`` is a [B, S] int tensor or array
+    (with ``batch["patches"]`` [B, n_patches, vision_dim] for the vlm and
+    ``batch["frames"]`` [B, T, D] for encdec); all are moved to the
+    parameters' device."""
     _require_family(cfg)
-    embed = params["embed"]
-    tokens = torch.as_tensor(batch["tokens"], device=embed.device).long()
-    B, S = tokens.shape
-    # F.embedding, not embed[tokens]: the same rows, and a backward that sums
-    # each row's gradients in a fixed order (index_put's accumulate does not)
-    h = F.embedding(tokens, embed)
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=embed.device)[None].expand(B, S)
-    aux = torch.zeros((), dtype=torch.float32, device=embed.device)
+    if cfg.family == "encdec":
+        return _forward_encdec_hidden(params, cfg, batch)
+    h = _embed(params, batch["tokens"])
+    prefix_len = 0
+    if cfg.family == "vlm":
+        vp = params["vision_proj"]
+        himg = _batch_input(batch, "patches", h) @ vp["w"] + vp["b"]
+        h = torch.cat([himg, h], dim=1)
+        prefix_len = cfg.vlm.n_patches
+    B, S = h.shape[:2]
+    positions = _positions(B, S, h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
     layers = _unstack(params["blocks"], cfg.n_layers)
     # per-block remat of the stacked layers, as the reference's _stack_scan;
     # the hybrid's shared block sits outside the scan there and here
     block = Lyr.remat if cfg.remat else (lambda fn, *a: fn(*a))
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
+        fwd = partial(_dense_block_fwd, cfg, prefix_len=prefix_len)
         for lp in layers:
-            h = block(partial(_dense_block_fwd, cfg), lp, h, positions)
+            h, aux = block(fwd, lp, h, positions, aux)
     elif cfg.family == "ssm":
         for lp in layers:
             h = block(partial(_mamba_block_fwd, cfg), lp, h)
@@ -269,7 +355,30 @@ def forward_hidden(params: PyTree, cfg: ArchConfig,
                 h = _shared_attn_fwd(cfg, params["shared_attn"], h, positions)
 
     h = Lyr.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return h, aux
+    return h[:, prefix_len:], aux
+
+
+def _forward_encdec_hidden(params: PyTree, cfg: ArchConfig,
+                           batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stub frames [B, T, D] + ``enc_pos`` -> the bidirectional encoder
+    (its self-attention ``causal=False``) -> ``memory``; tokens -> the
+    decoder with cross-attention over it."""
+    block = Lyr.remat if cfg.remat else (lambda fn, *a: fn(*a))
+    frames = _batch_input(batch, "frames", params["enc_pos"])
+    B, T, _ = frames.shape
+    hm = frames + params["enc_pos"][None, :T]
+    pos_e = _positions(B, T, hm.device)
+    aux = torch.zeros((), dtype=torch.float32, device=hm.device)
+    enc = partial(_dense_block_fwd, cfg, causal=False)
+    for lp in _unstack(params["enc_blocks"], cfg.encdec.n_enc_layers):
+        hm, _ = block(enc, lp, hm, pos_e, aux)     # the encoder's aux is dropped
+    memory = Lyr.rms_norm(hm, params["enc_final_norm"], cfg.norm_eps)
+
+    h = _embed(params, batch["tokens"])
+    pos_d = _positions(*h.shape[:2], h.device)
+    for lp in _unstack(params["blocks"], cfg.n_layers):
+        h = block(partial(_dec_block_fwd, cfg), lp, h, pos_d, memory)
+    return Lyr.rms_norm(h, params["final_norm"], cfg.norm_eps), aux
 
 
 def _hybrid_segments(cfg: ArchConfig) -> list[tuple[int, int, bool]]:
@@ -311,10 +420,12 @@ def _xent_chunk(params, cfg, h, labels, mask):
 
 
 def loss_fn(params: PyTree, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    """Masked LM cross-entropy (+ the aux loss, 0 for these families).
+    """Masked LM cross-entropy + the aux loss (the MoE load balance; 0 for
+    the other families).
 
     ``batch`` holds ``tokens``, ``labels`` and ``mask`` ([B, S], arrays or
-    tensors; moved to the parameters' device).  When ``S`` is a multiple of
+    tensors; moved to the parameters' device), and the vlm's ``patches`` or
+    encdec's ``frames`` (see ``forward_hidden``).  When ``S`` is a multiple of
     512 above it, the unembed and softmax run in 512-token chunks, each
     checkpointed under grad, so the f32 logits working set is ``[B, 512,
     V]``; the chunks' sums add in sequence order, as the reference's scan."""
@@ -357,9 +468,15 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    if cfg.family == "dense":
-        return {"k": zeros(L, batch, Sc, K, Dh), "v": zeros(L, batch, Sc, K, Dh),
+    if cfg.family in ("dense", "moe", "vlm"):
+        S_tot = Sc + (cfg.vlm.n_patches if cfg.family == "vlm" else 0)
+        return {"k": zeros(L, batch, S_tot, K, Dh), "v": zeros(L, batch, S_tot, K, Dh),
                 "pos": 0}
+    if cfg.family == "encdec":
+        T = cfg.encdec.n_frames
+        return {"k": zeros(L, batch, Sc, K, Dh), "v": zeros(L, batch, Sc, K, Dh),
+                "cross_k": zeros(L, batch, T, K, Dh),
+                "cross_v": zeros(L, batch, T, K, Dh), "pos": 0}
     d = Ssm.ssm_dims(cfg)
     cache = {
         "conv": zeros(L, batch, cfg.ssm.conv_width - 1, d["conv_dim"]),
@@ -437,13 +554,30 @@ def serve_step(params: PyTree, cfg: ArchConfig, cache: PyTree,
         cache["state"][i] = state
         return h + y
 
-    if cfg.family == "dense":
-        Sc = cache["k"].shape[2]
+    if cfg.family in ("dense", "moe", "vlm"):
+        prefix = cfg.vlm.n_patches if cfg.family == "vlm" else 0
+        Sc = cache["k"].shape[2] - prefix
         for i in range(cfg.n_layers):
             lp = _layer(params["blocks"], i)
             x = Lyr.rms_norm(h, lp["norm1"], cfg.norm_eps)
             h = h + _decode_attn(cfg, lp["attn"], x, pos, cache["k"][i],
-                                 cache["v"][i], Sc)
+                                 cache["v"][i], Sc, prefix_len=prefix)
+            x = Lyr.rms_norm(h, lp["norm2"], cfg.norm_eps)
+            if "moe" in lp:
+                h = h + Moe.moe_forward(lp["moe"], x, cfg)[0]
+            else:
+                h = h + Lyr.mlp_forward(lp["mlp"], x, cfg.act)
+    elif cfg.family == "encdec":
+        zero_pos = torch.zeros((h.shape[0], 1), dtype=torch.int32, device=h.device)
+        for i in range(cfg.n_layers):
+            lp = _layer(params["blocks"], i)
+            x = Lyr.rms_norm(h, lp["norm1"], cfg.norm_eps)
+            h = h + _decode_attn(cfg, lp["attn"], x, pos, cache["k"][i],
+                                 cache["v"][i], cache["k"].shape[2])
+            x = Lyr.rms_norm(h, lp["norm_x"], cfg.norm_eps)
+            h = h + Lyr.attn_forward(
+                lp["cross"], x, zero_pos, theta=cfg.rope_theta, causal=False,
+                kv_override=(cache["cross_k"][i], cache["cross_v"][i]), rope=False)
             x = Lyr.rms_norm(h, lp["norm2"], cfg.norm_eps)
             h = h + Lyr.mlp_forward(lp["mlp"], x, cfg.act)
     elif cfg.family == "ssm":

@@ -62,6 +62,8 @@ def _flash_inputs(B, S, H, K, D, dtype, seed):
     (1, 128, 4, 4, 128),
     (2, 256, 8, 1, 64),      # MQA
     (1, 512, 2, 2, 32),
+    (1, 128, 14, 2, 128),    # GQA ratio 7 (yi-34b)
+    (1, 128, 32, 2, 64),     # GQA ratio 16 (qwen3-moe-235b-a22b)
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_plain_matches_pallas(B, S, H, K, D, dtype):
@@ -85,6 +87,28 @@ def test_flash_attention_masks_match_pallas(window, prefix, causal):
     got = fa_ops.flash_attention(tq, tk, tv, causal=causal, window=window,
                                  prefix_len=prefix)
     np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("B,S,H,K,window,prefix", [
+    (1, 128, 4, 1, None, 16),     # MQA with paligemma's image prefix
+    (2, 96, 2, 1, 32, 0),         # MQA with a window
+    (1, 128, 4, 2, 48, 16),       # GQA, window and prefix
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_head_dim_256_matches_pallas(B, S, H, K, window, prefix, dtype):
+    """paligemma-3b's head dim: the Pallas kernel takes D <= 256, and so does
+    the port's wrapper (the CUDA kernel re-reads q's fragments from shared
+    memory there; its plain version here)."""
+    assert 256 in fa_ops.HEAD_DIMS
+    (jq, tq), (jk, tk), (jv, tv) = _flash_inputs(B, S, H, K, 256, dtype, S + H)
+    mk = dict(causal=True, window=window, prefix_len=prefix)
+    want = jax_flash(jq, jk, jv, interpret=True, **mk)
+    launches = fa_ops.flash_attention.launches
+    got = fa_ops.flash_attention(tq, tk, tv, **mk)
+    assert fa_ops.flash_attention.launches == launches
+    assert got.shape == (B, S, H, 256) and got.dtype == tq.dtype
+    tol = FLASH_TOL[dtype]
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
 
 
 def test_flash_attention_matches_the_models_plain_route():
@@ -160,14 +184,15 @@ def test_ssd_scan_plain_matches_the_ports_ssd_chunked(chunk):
 
 
 @pytest.mark.parametrize("case", [
-    "head_dim_48", "heads_not_divisible", "float16", "mixed_types",
-    "window_0", "empty_keys"])
+    "head_dim_48", "head_dim_512", "heads_not_divisible", "float16",
+    "mixed_types", "window_0", "empty_keys"])
 def test_flash_attention_raises_on_what_the_kernel_does_not_take(case):
     q = torch.zeros(1, 8, 4, 64)
     k = v = torch.zeros(1, 8, 2, 64)
     kw = {}
-    if case == "head_dim_48":
-        q, k, v = torch.zeros(1, 8, 4, 48), torch.zeros(1, 8, 2, 48), torch.zeros(1, 8, 2, 48)
+    if case in ("head_dim_48", "head_dim_512"):
+        D = int(case.split("_")[-1])
+        q, k, v = torch.zeros(1, 8, 4, D), torch.zeros(1, 8, 2, D), torch.zeros(1, 8, 2, D)
     elif case == "heads_not_divisible":
         k = v = torch.zeros(1, 8, 3, 64)
     elif case == "float16":
