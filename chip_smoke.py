@@ -114,7 +114,10 @@ Phases, each of which exits non-zero on failure:
              causal, prefix 256), whisper-large-v3's encoder (B 2, S 1500,
              20 heads of 64, bidirectional) and mixtral-8x22b (B 1, S 8192,
              48 heads over 8 of 128, causal, window 4096), each timed beside
-             one SDPA call with its boolean mask.  ``packed_qnet`` (the W = 1
+             one SDPA call with its boolean mask; and granite-20b's MQA (B 1,
+             S 4096, 48 heads over 1 kv head of 128, causal: the largest GQA
+             ratio of any config, and granite-34b's shape) with a small MQA
+             case at D 128.  ``packed_qnet`` (the W = 1
              launch of the packed kernel) against its plain version and bit
              for bit against ``fused_qnet`` on the densified rows.
 8. lm      - zamba2-1.2b, then mamba2-2.7b, at full width with seeded
@@ -130,16 +133,17 @@ Phases, each of which exits non-zero on failure:
              each kernel's share; then ``python -m repro_torch.launch.serve``
              at its defaults must exit 0.
 8a. lm_families - the moe, encdec and vlm families (and yi-34b's GQA of
-             ratio 7), each at its published width with seeded random
+             ratio 7 and granite-20b's MQA of 48 heads), each at its
+             published width with seeded random
              weights made on the card, depth cut only where one card cannot
              hold the model: paligemma-3b (18 layers, B 2, 256 patches +
              2048 tokens), whisper-large-v3 (32 + 32 layers, B 2, 1500
              frames + 448 tokens), and 2 layers of mixtral-8x22b (B 1,
-             S 8192: the window bites), qwen3-moe-235b-a22b and yi-34b (B 1,
-             S 4096).  Per config: the f32 kernel route against the plain
+             S 8192: the window bites), qwen3-moe-235b-a22b, yi-34b and
+             granite-20b (B 1, S 4096).  Per config: the f32 kernel route against the plain
              route at 2 layers (within 1e-3 of max |logits|, the aux loss
              alike); the bf16 prefill through ``make_prefill_step`` with
-             exactly 18 / 64 / 2 / 2 / 2 ``flash_attention`` launches, finite
+             exactly 18 / 64 / 2 / 2 / 2 / 2 ``flash_attention`` launches, finite
              logits, a bit-identical rerun, positions/s from CUDA events and
              a ``torch.profiler`` table; 8 ``serve_step`` decode steps of the
              reduced f32 config on the card against the CPU (1e-4), and for
@@ -169,6 +173,30 @@ Phases, each of which exits non-zero on failure:
              (stablelm-1.6b at full width, bf16, B 8, S 64, 50 steps) must
              exit 0 with a finite final loss below its first, and ``python
              -m repro_torch.examples.backbone_lm`` must exit 0.
+11. dryrun - the dry-run half.  damoldqn's serve step (``make_serve_step``
+             over the parameter tree) at ``qnet_batch_specs``' shape, B 256 x
+             160 candidates = 40,960 rows of 2049, in one ``fused_qnet``
+             launch per call: within 1e-4 abs + 1e-4 rel of ``qnet_ref``,
+             a rerun bit-identical.  Its double-DQN train step
+             (``make_train_step``, Adam with clip 1.0) from the same seeded
+             parameters and batch (a random legal-action mask, every 16th row
+             empty) on the card and on the CPU: the loss within 1e-5
+             relative, the parameters after one step within 1e-4 abs + 1e-4
+             rel and the step's update (p1 - p0) within 1e-3 x lr of the
+             CPU's where the gradient is not near zero (a step that moved
+             nothing fails), 0 kernel launches, a rerun bit-identical; the FLOPs
+             ``roofline.op_walk`` counts over the step on the card equal to
+             its count of the same step on ``meta``; 5 timed steps (steps/s,
+             achieved FLOP/s against the f32 peak); ``fused_qnet`` at the
+             40,960 rows timed beside its plain version, the addmm chain and
+             the bound.  Then ``python -m repro_torch.launch.dryrun`` in
+             parallel host processes that see no card, into ``build/dryrun``:
+             damoldqn at every shape (``train_4k`` ok, the other three
+             skipped with the reference's reasons), yi-34b at ``long_500k``
+             (the window policy, under FSDP) and zamba2-1.2b at
+             ``decode_32k``, each on 16 x 16 and 2 x 16 x 16: every report
+             ``ok`` or ``skipped``, one line each.  The whole matrix
+             (``--all --both-meshes``) needs no card and is a host run.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -247,7 +275,9 @@ FLASH_SMALL = (                                  # B, S, H, K, D, causal, window
     # GQA ratios 7 (yi-34b) and 16 (qwen3-moe-235b-a22b), the second windowed
     (1, 256, 14, 2, 128, True, None, 0), (1, 256, 32, 2, 128, True, 64, 0),
     # D = 256 (paligemma-3b): MQA with a window and a prefix, MQA with a prefix
-    (1, 256, 4, 1, 256, True, 64, 16), (2, 200, 8, 1, 256, True, None, 16))
+    (1, 256, 4, 1, 256, True, 64, 16), (2, 200, 8, 1, 256, True, None, 16),
+    # MQA at D = 128 (granite-20b / granite-34b: 48 heads over 1 kv head)
+    (1, 256, 8, 1, 128, True, None, 0))
 # bf16 tiles are 128 queries x 64 keys: ragged edges, a window and a prefix
 # that cut tiles, GQA with Sq != Sk
 FLASH_EDGES = (                                  # B, Sq, Sk, H, K, D, causal, window, prefix
@@ -267,7 +297,8 @@ FLASH_PATHS = (
     ("whisper-large-v3", "decoder", 2, 448, 20, 20, 64, True, None, 0, True),
     ("mixtral-8x22b", "", 1, 8192, 48, 8, 128, True, 4096, 0, False),
     ("qwen3-moe-235b-a22b", "", 1, 4096, 64, 4, 128, True, None, 0, True),
-    ("yi-34b", "", 1, 4096, 56, 8, 128, True, None, 0, True))
+    ("yi-34b", "", 1, 4096, 56, 8, 128, True, None, 0, True),
+    ("granite-20b", "", 1, 4096, 48, 1, 128, True, None, 0, True))
 # the path shape before the bf16 kernel moved to tensor cores (PERF.md §6)
 FFMA_FLASH_MS = {"bfloat16": 5.7809, "float32": 5.8006}
 # the scan at the zamba2 path shape before the chunk-parallel kernel (PERF.md §6)
@@ -319,9 +350,26 @@ LM_CELLS = {
                     ("whisper-large-v3", None, 2, 448, 2, 1, 448),
                     ("mixtral-8x22b", 2, 1, 8192, 2, 1, 8192),
                     ("qwen3-moe-235b-a22b", 2, 1, 4096, 2, 1, 512),
-                    ("yi-34b", 2, 1, 4096, 2, 1, 512))}
+                    ("yi-34b", 2, 1, 4096, 2, 1, 512),
+                    ("granite-20b", 2, 1, 4096, 2, 1, 512))}
 REDUCED_DECODE = 8              # steps of each reduced config, card vs CPU
 REDUCED_DECODE_TOL = 1e-4       # abs + rel, f32
+
+# the dry-run half (dryrun): damoldqn's steps at launch/specs.qnet_batch_specs'
+# shape (train_4k's global batch of 256 x its 160 candidates), card vs CPU,
+# and the dry-run launcher on the host (no card), each run one process
+QNET_BATCH, QNET_CANDIDATES = 256, 160
+QNET_STEP_TOL = 1e-4            # parameters after one step, card vs CPU, abs + rel
+QNET_LR = 1e-4                  # launch/steps.make_optimizer's Adam
+QNET_UPDATE_TOL = 1e-3          # x lr: the step's update (p1 - p0), card vs CPU, where
+QNET_UPDATE_MASK = 1e-3         # the CPU's first moment exceeds this x its leaf's max
+QNET_STEPS = 5
+# the launcher's policies: damoldqn's SKIP rows, yi-34b's long_500k window
+# under FSDP, zamba2's decode; the whole matrix is the host run's
+DRYRUN_RUNS = (["--arch", "damoldqn", "--both-meshes"],
+               ["--arch", "yi-34b", "--shape", "long_500k", "--both-meshes"],
+               ["--arch", "zamba2-1.2b", "--shape", "decode_32k", "--both-meshes"])
+DRYRUN_TIMEOUT_S = 600
 
 # dense peaks by card (NVIDIA data sheets): f32 FMA FLOP/s, HBM bytes/s,
 # bf16 tensor-core FLOP/s
@@ -2321,6 +2369,266 @@ def phase_lm_train() -> dict:
     return launches
 
 
+def _qnet_step_inputs():
+    """damoldqn's seeded parameters (online, and a perturbed target) and a
+    replay batch at ``qnet_batch_specs``' shape, on the CPU: fingerprint
+    bits with a steps-left feature, a random legal-action mask with every
+    16th row empty."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = get_config("damoldqn")
+    params = init_params(cfg, 0, device="cpu")
+    target = {"layers": [{k: v * 0.9 + 0.01 for k, v in l.items()}
+                         for l in init_params(cfg, 1, device="cpu")["layers"]]}
+    rng = np.random.default_rng(0)
+    B, C = QNET_BATCH, QNET_CANDIDATES
+
+    def fps(*shape):
+        x = np.empty((*shape, 2049), np.float32)
+        x[..., :2048] = rng.random((*shape, 2048), np.float32) < 0.1
+        x[..., 2048] = rng.integers(0, 11, shape) / 10.0
+        return x
+    mask = (rng.random((B, C)) < 0.6).astype(np.float32)
+    mask[::16] = 0.0
+    batch = {"states": fps(B), "rewards": rng.standard_normal(B).astype(np.float32),
+             "dones": (rng.random(B) < 0.3).astype(np.float32),
+             "next_fps": fps(B, C), "next_mask": mask}
+    return cfg, params, target, {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _qnet_update_err(p0, p1, p1_cpu, mu_cpu) -> float:
+    """Max |update on the card - update on the CPU| of one Adam step, where
+    the CPU's first moment is above QNET_UPDATE_MASK of its leaf's max (a
+    near-zero gradient's update is g / (|g| + eps), ill-conditioned).  A
+    step that moved nothing, or part of Adam's lr-sized update, fails."""
+    import torch
+    from repro_torch.checkpoint.checkpoint import tree_leaves
+    worst = 0.0
+    for i, (a, card, want, m) in enumerate(zip(tree_leaves(p0), tree_leaves(p1),
+                                               tree_leaves(p1_cpu), mu_cpu)):
+        sel = m.abs() > QNET_UPDATE_MASK * m.abs().max()
+        diff = ((card.cpu() - a) - (want - a)).abs()[sel]
+        if not bool(sel.any()) or not bool(torch.isfinite(diff).all()):
+            fail(f"dryrun: qnet leaf {i}: no gradient above the mask, or a "
+                 f"non-finite update")
+        worst = max(worst, float(diff.max()))
+        if worst > QNET_UPDATE_TOL * QNET_LR:
+            fail(f"dryrun: qnet leaf {i}: the update on the card differs from the "
+                 f"CPU's by {worst:.3e} > {QNET_UPDATE_TOL} x lr {QNET_LR}")
+    return worst
+
+
+def _to(tree, device):
+    from repro_torch.checkpoint.checkpoint import tree_leaves
+    from repro_torch.launch.steps import with_leaves
+    return with_leaves(tree, [t.to(device) for t in tree_leaves(tree)])
+
+
+def _dryrun_launcher() -> dict:
+    """``python -m repro_torch.launch.dryrun`` on the host, DRYRUN_RUNS in
+    parallel processes that see no card, into a fresh ``build/dryrun``:
+    every report ``ok`` or ``skipped`` (damoldqn's other shapes with the
+    reference's reasons).  Returns the reports by file name."""
+    import os
+    import shutil
+    from repro_torch.launch.dryrun import SKIP
+
+    out = ROOT / "build" / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *a,
+                               "--out", str(out)], env=env, cwd=ROOT, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for a in DRYRUN_RUNS]
+    try:
+        for a, p in zip(DRYRUN_RUNS, procs):
+            stdout, stderr = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+            if p.returncode != 0:
+                fail(f"dryrun: python -m repro_torch.launch.dryrun {' '.join(a)} exited "
+                     f"{p.returncode}:\n{stdout[-2000:]}\n{stderr[-2000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    reports = {f.name: json.loads(f.read_text()) for f in sorted(out.glob("*.json"))}
+    want = {f"damoldqn_{s}_{m}.json" for s in
+            ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+            for m in ("16x16", "2x16x16")} | {
+        f"{a}_{s}_{m}.json" for a, s in (("yi-34b", "long_500k"),
+                                         ("zamba2-1.2b", "decode_32k"))
+        for m in ("16x16", "2x16x16")}
+    if set(reports) != want:
+        fail(f"dryrun: reports {sorted(reports)}, want {sorted(want)}")
+    for name, r in reports.items():
+        skip = SKIP.get((r["arch"], r["shape"]))
+        if (r["status"], r.get("reason")) != (("skipped", skip) if skip else ("ok", None)):
+            fail(f"dryrun: {name}: status {r['status']} {r.get('reason') or r.get('error')}")
+        if skip:
+            print(f"dryrun: {name[:-5]}: skipped ({skip})", flush=True)
+            continue
+        if not (r["flops_per_chip"] > 0 and r["fits_80gb"] and r["hw"]["name"] == "h100-sxm"):
+            fail(f"dryrun: {name}: {r}")
+        print(f"dryrun: {name[:-5]}: ok, {r['flops_per_chip']:.4e} FLOP/chip, "
+              f"{r['bytes_per_chip']:.4e} B/chip, {r['collective_bytes_per_chip']:.4e} "
+              f"collective B/chip, HBM {r['hbm_gb_per_chip']} GiB/chip, dominant "
+              f"{r['dominant']}, fits_80gb {r['fits_80gb']}, microbatches "
+              f"{r['microbatches']}, fsdp {r['fsdp']}, window {r['window']}, "
+              f"{r['compile_s']} s", flush=True)
+    print(f"dryrun: {len(DRYRUN_RUNS)} launcher processes on the host (no card): "
+          f"{len(reports)} reports in {wall:.1f} s wall", flush=True)
+    return reports
+
+
+def phase_dryrun(peak, card: str) -> tuple[dict, int]:
+    """damoldqn's serve and train steps on the card, the op walk's count on
+    the card against ``meta``, and the dry-run launcher on the host.
+    Returns the ``fused_qnet`` record at the serve step's rows and the
+    launches of the phase's main-path run."""
+    import warnings
+
+    import torch
+    from repro_torch.checkpoint.checkpoint import tree_leaves
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.fused_qnet.ops import fused_qnet
+    from repro_torch.kernels.fused_qnet.ref import qnet_ref
+    from repro_torch.kernels.packed_qnet.ops import packed_qnet, packed_qnet_stacked
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import make_serve_step, make_train_step
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.models import abstract_params
+    from repro_torch.roofline.op_walk import aggregate
+
+    t_phase = time.perf_counter()
+    kernels = (fused_qnet, packed_qnet_stacked, packed_qnet, flash_attention, ssd_scan)
+    cfg, cpu, target_cpu, batch_cpu = _qnet_step_inputs()
+    spec, _ = S.qnet_batch_specs(INPUT_SHAPES["train_4k"], make_production_mesh())
+    if {k: tuple(v.shape) for k, v in batch_cpu.items()} != \
+            {k: tuple(v.shape) for k, v in spec.items()}:
+        fail(f"dryrun: the qnet batch is not qnet_batch_specs' shape {spec}")
+    params, target = _to(cpu, "cuda"), _to(target_cpu, "cuda")
+    batch = {k: v.cuda() for k, v in batch_cpu.items()}
+    layers = [(l["w"], l["b"]) for l in params["layers"]]
+    rows = QNET_BATCH * QNET_CANDIDATES
+
+    # the main path: the serve step twice, the train step twice
+    serve = make_serve_step(cfg)
+    step, opt = make_train_step(cfg)
+    for k in kernels:
+        k.launches = 0
+    q = serve(params, batch["next_fps"])
+    q2 = serve(params, batch["next_fps"])
+    torch.cuda.synchronize()
+    serve_launches = fused_qnet.launches
+    before = [k.launches for k in kernels]
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            p1, s1, l1 = step(params, target, opt.init(params), batch)
+            p1b, s1b, l1b = step(params, target, opt.init(params), batch)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(was_deterministic)
+    step_launches = {k.__name__: k.launches - n for k, n in zip(kernels, before)}
+    if serve_launches != 2:
+        fail(f"dryrun: 2 qnet serve steps of {rows} rows made {serve_launches} "
+             f"fused_qnet launches, want 1 each")
+    if any(step_launches.values()):
+        fail(f"dryrun: the qnet train step launched kernels: {step_launches}")
+    if tuple(q.shape) != (QNET_BATCH, QNET_CANDIDATES) or not torch.equal(q, q2):
+        fail(f"dryrun: qnet serve step {tuple(q.shape)}, or its rerun differs")
+    x2d = batch["next_fps"].reshape(rows, -1)
+    err = _check_close("dryrun: qnet serve step vs qnet_ref", q.reshape(-1),
+                       qnet_ref(x2d, layers), TOL)
+    if not (torch.equal(l1, l1b) and all(torch.equal(a, b) for a, b in
+                                         zip(tree_leaves(p1), tree_leaves(p1b)))):
+        fail("dryrun: the qnet train step's rerun is not bit-identical")
+    pc, sc, lc = step(cpu, target_cpu, opt.init(cpu), batch_cpu)
+    rel = abs(float(l1) - float(lc)) / abs(float(lc))
+    if not rel <= LM_LOSS_RTOL:
+        fail(f"dryrun: qnet train loss on the card {float(l1)!r} vs the CPU "
+             f"{float(lc)!r}: {rel:.3e} > {LM_LOSS_RTOL}")
+    perr = max(_check_close(f"dryrun: qnet parameter leaf {i} after one step, card vs CPU",
+                            a.cpu(), b, QNET_STEP_TOL)
+               for i, (a, b) in enumerate(zip(tree_leaves(p1), tree_leaves(pc))))
+    uerr = _qnet_update_err(cpu, p1, pc, sc.mu)
+    print(f"dryrun: damoldqn serve step, B {QNET_BATCH} x {QNET_CANDIDATES} candidates "
+          f"= {rows} rows of 2049: {serve_launches} fused_qnet launches for 2 calls, "
+          f"max_abs_err {err:.3e} vs qnet_ref (<= {TOL} abs + rel), rerun "
+          f"bit-identical | train step (double DQN, Adam clip 1.0) card vs CPU: loss "
+          f"{float(l1):.6f} vs {float(lc):.6f} ({rel:.3e} rel, <= {LM_LOSS_RTOL}), "
+          f"parameters after one step max abs {perr:.3e} (<= {QNET_STEP_TOL} abs + "
+          f"rel), update max abs {uerr / QNET_LR:.3e} x lr (<= {QNET_UPDATE_TOL} x lr "
+          f"where |mu| > {QNET_UPDATE_MASK} x its leaf's max), launches "
+          f"{step_launches}, rerun bit-identical", flush=True)
+    for m in sorted({str(w.message).split("\n")[0][:160] for w in caught}):
+        print(f"dryrun: warning under deterministic algorithms: {m}", flush=True)
+    del pc, p1b, s1b
+
+    # the op walk: the real step on the card against the same step on meta
+    counted = aggregate(step, params, target, opt.init(params), batch)
+    meta = abstract_params(cfg)
+    counted_meta = aggregate(step, meta, abstract_params(cfg), opt.init(meta), spec)
+    if counted["flops"] != counted_meta["flops"]:
+        fail(f"dryrun: op_walk counts {counted['flops']} FLOP on the card, "
+             f"{counted_meta['flops']} on meta")
+    cur, st = p1, s1
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(QNET_STEPS + 1)]
+    marks[0].record()
+    for i in range(QNET_STEPS):
+        cur, st, _ = step(cur, target, st, batch)
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(QNET_STEPS)]
+    best = min(ms)
+    print(f"dryrun: op_walk over the train step: {counted['flops']:.6e} FLOP on the "
+          f"card == {counted_meta['flops']:.6e} on meta ({counted['ops']} aten ops, "
+          f"{counted['bytes'] / 1e9:.3f} GB unfused); {QNET_STEPS} steps "
+          f"{', '.join(f'{m:.3f}' for m in ms)} ms (CUDA events) = "
+          f"{1e3 / best:.1f} steps/s at the best, {counted['flops'] / best / 1e9:.2f} "
+          f"TFLOP/s achieved against the f32 peak {peak[0] / 1e12} TFLOP/s "
+          f"({100 * counted['flops'] / best * 1e3 / peak[0]:.1f}%) on {card}", flush=True)
+    del cur, st, p1, s1
+
+    # the kernel at the serve step's rows, held and timed like phase_kernels
+    n_params = sum(w.numel() + b.numel() for w, b in layers)
+    mac_per_row = sum(w.numel() for w, _ in layers)
+
+    def library(x):                          # yardstick only: addmm chain
+        h = x
+        for li, (w, b) in enumerate(layers):
+            h = torch.addmm(b, h, w)
+            if li < len(layers) - 1:
+                h = torch.relu_(h)
+        return h[:, 0]
+    record = _row("fused_qnet", "src/repro_torch/kernels/fused_qnet/csrc/fused_qnet.cu",
+                  "src/repro/kernels/fused_qnet/fused_qnet.py:63", [rows, 2049],
+                  serve_launches, err, cuda_ms(lambda: fused_qnet(layers, x2d), 10),
+                  cuda_ms(lambda: qnet_ref(x2d, layers), 5),
+                  cuda_ms(lambda: library(x2d), 5), 2.0 * rows * mac_per_row,
+                  4.0 * (x2d.numel() + n_params + rows), peak[0], peak,
+                  rows=rows, path="dryrun: the damoldqn serve step")
+    print(f"dryrun: fused_qnet N={rows}: kernel {record['ms']:.4f} ms, plain "
+          f"{record['plain_ms']:.4f} ms, library (addmm chain) "
+          f"{record['library_ms']:.4f} ms, bound {record['bound_ms']:.4f} ms "
+          f"({record['bound_by']})", flush=True)
+    del params, target, batch, x2d, q, q2, layers
+    torch.cuda.empty_cache()
+
+    _dryrun_launcher()
+    print(f"dryrun: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return record, serve_launches
+
+
 def compare(src: Path) -> None:
     """``--compare SRC``: the port at SRC (the ``src`` of another checkout)
     on the seeded inputs of the kernels phases.  Prints one JSON line with
@@ -2434,9 +2742,15 @@ def main() -> None:
     for r in lm_rows:
         r["launches"] = launches[(r["name"], r["arch"])]
     rows += lm_rows
-    launches = phase_lm_train()
+    lm_launches = phase_lm_train()
     for r in rows:
-        r["launches_lm_train"] = launches[r["name"]]
+        r["launches_lm_train"] = lm_launches[r["name"]]
+    record, launches = phase_dryrun(peak, card)
+    for r in rows:
+        if r["name"] == "fused_qnet":
+            r["launches_dryrun"] = launches
+    rows.append({**record, "launches_lm_train": lm_launches["fused_qnet"],
+                 "launches_dryrun": launches})
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s on {card}", flush=True)
     print(json.dumps({"card": card, "kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
 """Port of ``repro.configs``: the architecture registry and the scenario
 registry (``scenarios.py``).
 
-The registry holds every LM architecture of the reference (dense, moe,
-ssm, hybrid, encdec and vlm families).  The paper's own Q-network config
-(``damoldqn``, the qnet family) comes with the dry-run slice (ROADMAP A7).
+The registry holds every architecture of the reference: the LM families
+(dense, moe, ssm, hybrid, encdec and vlm) and the paper's own Q-network
+(``damoldqn``, the qnet family).
 """
 
 from repro_torch.configs.base import (
@@ -22,6 +22,7 @@ import repro_torch.configs.mixtral_8x22b        # noqa: F401
 import repro_torch.configs.whisper_large_v3     # noqa: F401
 import repro_torch.configs.paligemma_3b         # noqa: F401
 import repro_torch.configs.granite_20b          # noqa: F401
+import repro_torch.configs.damoldqn             # noqa: F401
 
 __all__ = [
     "ArchConfig", "MoEConfig", "SSMConfig", "EncDecConfig", "VLMConfig",

@@ -1,1 +1,2 @@
-"""Port of ``repro.launch``: command-line entry points."""
+"""Port of ``repro.launch``: the production mesh, the dry-run, and the
+train and serve entry points."""

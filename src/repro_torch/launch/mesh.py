@@ -15,12 +15,15 @@ on the one card.  That is the counterpart of the reference's forced host
 device pool (``--xla_force_host_platform_device_count``): it shows the
 sharding's overhead, never a speedup.
 
-``make_production_mesh`` (the TPU pod meshes of the dry-run) belongs to
-the multi-host slice, ROADMAP A7, and has no counterpart here yet.
+``make_production_mesh`` is the dry-run's mesh: the reference's 16 x 16
+pod (or two of them) as shapes and axis names, its devices ``meta``
+placeholders, as the reference's are host placeholders.  Nothing runs on
+it: ``launch/specs.py`` and ``launch/dryrun.py`` read its axes and sizes.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -48,6 +51,35 @@ class HostMesh:
     @property
     def shape(self) -> dict[str, int]:
         return {"data": self.size}
+
+
+@dataclass(frozen=True)
+class ProductionMesh:
+    """A mesh of named axes that only describes a layout: ``shape`` maps
+    each axis to its size, ``devices`` are ``meta`` placeholders."""
+
+    axis_names: tuple[str, ...]
+    dims: tuple[int, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.dims))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.dims)
+
+    @property
+    def devices(self) -> tuple[torch.device, ...]:
+        return (torch.device("meta"),) * self.size
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
+    """The reference's production mesh: 16 x 16 = 256 chips per pod
+    ("data", "model"), or 2 pods = 512 chips ("pod", "data", "model")."""
+    if multi_pod:
+        return ProductionMesh(("pod", "data", "model"), (2, 16, 16))
+    return ProductionMesh(("data", "model"), (16, 16))
 
 
 def make_host_mesh(nd: int | None = None, *,
@@ -109,10 +141,10 @@ def shard_slices(n_rows: int, mesh: HostMesh) -> list[slice]:
     return [slice(s * per, (s + 1) * per) for s in range(mesh.size)]
 
 
-def batch_axes(mesh: HostMesh) -> tuple[str, ...]:
+def batch_axes(mesh: HostMesh | ProductionMesh) -> tuple[str, ...]:
     """The data-parallel axes of a mesh (everything except "model")."""
     return tuple(a for a in mesh.axis_names if a != "model")
 
 
-def mesh_tp(mesh: HostMesh) -> int:
+def mesh_tp(mesh: HostMesh | ProductionMesh) -> int:
     return mesh.shape.get("model", 1)

@@ -13,9 +13,16 @@ the optimizer's moments and the clip's global norm run over the leaves in
 the reference's order; ``opt.init`` takes the tree, as the reference's
 does, and keeps the moments as lists in that order.  Gradients come from
 ``torch.autograd.grad`` and keep each leaf's type (bf16 leaves get bf16
-gradients, as in JAX).  The qnet family's double-DQN train step needs
-``configs/damoldqn.py`` and comes with ROADMAP A7; its serve step takes a
-``QNetwork``.
+gradients, as in JAX).
+
+The qnet family (``damoldqn``) builds the double-DQN step instead, over the
+parameter tree ``{"layers": [{"w", "b"}, ...]}``: ``make_train_step`` ->
+f(params, target_params, opt_state, batch) -> (params, opt_state, loss),
+the loss ``core.agent.dqn_loss`` (plain ``qnet_ref`` under autograd: the Q
+kernels are forward only) and Adam over the leaves in the same order;
+``make_serve_step`` -> f(params, states [..., 2049]) -> q [...], every row
+in one ``fused_qnet`` call (the CUDA kernel on the card, ``qnet_ref`` on
+the CPU), as the reference's ``use_pallas_qnet`` routes it.
 """
 
 from __future__ import annotations
@@ -35,16 +42,44 @@ def make_optimizer(cfg: ArchConfig, lr: float = 1e-4) -> Optimizer:
 
 
 def with_leaves(tree: dict, leaves) -> dict:
-    """``tree`` with its leaves replaced, in ``tree_leaves`` order, by
-    ``leaves``; the keys keep their order."""
+    """``tree`` (dicts and lists) with its leaves replaced, in
+    ``tree_leaves`` order, by ``leaves``; the keys keep their order."""
     it = iter(leaves)
 
     def walk(t):
+        if isinstance(t, list):
+            return [walk(v) for v in t]
         if not isinstance(t, dict):
             return next(it)
         out = {k: walk(t[k]) for k in sorted(t)}
         return {k: out[k] for k in t}
     return walk(tree)
+
+
+def _qnet_layers(params: dict) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    return [(l["w"], l["b"]) for l in params["layers"]]
+
+
+def _make_qnet_train_step(opt: Optimizer):
+    """The reference's double-DQN step (``repro/launch/steps.py:30-48``):
+    the online net's argmax over the legal next actions (``-inf`` masked),
+    the target net's value there, 0 for rows with no legal action, Huber on
+    ``q_sa - (r + (1 - d) v)``; discount 1.0 multiplies exactly."""
+    from repro_torch.core.agent import dqn_loss
+
+    def qnet_train_step(params, target_params, opt_state, batch):
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+        device = leaves[0].device
+        dev = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        with torch.enable_grad():
+            loss, _ = dqn_loss(_qnet_layers(with_leaves(params, leaves)),
+                               _qnet_layers(target_params), dev, 1.0)
+            grads = torch.autograd.grad(loss, leaves)
+        params_in = [t.detach() for t in leaves]
+        updates, opt_state = opt.update(list(grads), opt_state, params_in)
+        return (with_leaves(params, apply_updates(params_in, updates)), opt_state,
+                loss.detach())
+    return qnet_train_step
 
 
 def loss_and_grads(params: dict, cfg: ArchConfig,
@@ -75,15 +110,16 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer | None = None,
     one backward each; the gradients accumulate in each parameter's type,
     ``(a + g).to(a.dtype)``, and the step takes ``(g / mb)`` in the
     parameter's type and reports the mean of the microbatch losses, as the
-    reference's ``lax.scan`` does."""
-    if cfg.family == "qnet":
-        raise NotImplementedError(
-            "the qnet family's train step needs configs/damoldqn.py, which is "
-            "not ported yet (ROADMAP A7); the DQN learner is "
-            "repro_torch.core.distributed")
+    reference's ``lax.scan`` does.
+
+    For the qnet family the step is ``qnet_train_step(params,
+    target_params, opt_state, batch)`` over the replay batch (``states``,
+    ``rewards``, ``dones``, ``next_fps``, ``next_mask``)."""
     base = optimizer or make_optimizer(cfg)
     opt = Optimizer(init=lambda params: base.init(tree_leaves(params)),
                     update=base.update)
+    if cfg.family == "qnet":
+        return _make_qnet_train_step(base), opt
     mb = max(microbatches, 1)
 
     def train_step(params, opt_state, batch):
@@ -123,8 +159,13 @@ def pick_microbatches(cfg: ArchConfig, shape, dp: int, *, budget_gib: float = 4.
 
 def make_serve_step(cfg: ArchConfig):
     if cfg.family == "qnet":
-        def qnet_serve_step(net, states: torch.Tensor) -> torch.Tensor:
-            return net(states)
+        from repro_torch.kernels.fused_qnet.ops import fused_qnet
+
+        def qnet_serve_step(params, states) -> torch.Tensor:
+            layers = _qnet_layers(params)
+            x = torch.as_tensor(states, dtype=torch.float32, device=layers[0][0].device)
+            q = fused_qnet(layers, x.reshape(-1, x.shape[-1]).contiguous())
+            return q.reshape(x.shape[:-1])
         return qnet_serve_step
 
     def serve_step(params, cache, tokens):

@@ -7,8 +7,10 @@ mamba2 blocks + one shared attention block applied every
 ``shared_attn_every`` layers), encdec (whisper: stub frame embeddings ->
 bidirectional encoder -> decoder with cross-attention), vlm (paligemma:
 stub patch embeddings -> projector -> prefix-LM decoder over the image
-prefix and the text).  The qnet family lives in ``repro_torch.core``; its
-config (``damoldqn``) comes with ROADMAP A7, and it raises here.
+prefix and the text).  The qnet family (``damoldqn``, the paper's DQN) has
+its parameter tree here, ``{"layers": [{"w", "b"}, ...]}`` as the
+reference's ``QNetwork.init`` builds it; its steps are ``launch/steps.py``'s
+and its model lives in ``repro_torch.core``.
 
 Parameters are the reference's tree: nested dicts, per-layer leaves
 stacked on a leading ``[L, ...]`` axis, each leaf in its own type (the SSM's
@@ -26,11 +28,13 @@ reference goes through Pallas (every self-attention, the encoder's
 bidirectional one included; whisper's cross-attention stays plain, as the
 reference passes no ``use_pallas`` there); they are forward only and refuse autograd,
 so ``loss_fn`` trains through the plain routes, as the reference does.
-There is no
-sharding: an LM runs on one device (the trainer's mesh,
-``launch/mesh.py``, is the DA-MolDQN fleet's, and the LM step over a mesh
-waits for ROADMAP A7), so the reference's sequence-parallel constraint
-(``_seq_shard``), ``param_pspecs`` and ``add_fsdp`` have no counterpart.
+An LM runs on one device.  The sharding plan is data, as the dry-run
+reads it: ``abstract_params`` is the ``meta`` tree, ``param_pspecs`` gives
+each leaf a tuple with one entry per dim (a mesh axis name, a tuple of
+names, or ``None``) by the reference's policy, and ``add_fsdp`` widens the
+large leaves over the data axes.  Nothing places a tensor by them: the
+reference's sequence-parallel constraint (``_seq_shard``) has no
+counterpart, and ``launch/dryrun.py`` counts the collectives they imply.
 
 Decode (``serve_step``) is plain PyTorch, as the reference's is plain
 JAX.  It writes the new key and value into the KV cache's ring slot and the
@@ -63,12 +67,11 @@ FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 
 
 def _require_family(cfg: ArchConfig) -> None:
-    if cfg.family == "qnet":
-        raise NotImplementedError(
-            "the qnet family's model needs configs/damoldqn.py, which is not "
-            "ported yet (ROADMAP A7); the DQN lives in repro_torch.core")
+    """The LM paths (forward, cache, decode) take the LM families only; the
+    qnet family raises ``ValueError`` there, as the reference's
+    ``init_cache`` does: its forward is the Q-network's."""
     if cfg.family not in FAMILIES:
-        raise ValueError(f"unknown family {cfg.family}")
+        raise ValueError(f"{cfg.family} is not an LM family")
 
 
 # ================================================================== #
@@ -122,11 +125,20 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
     ``device`` (default: the GPU) from a ``torch.Generator`` seeded with
     ``seed``.  The values differ from ``repro``'s ``init_params`` (another
     generator); carry a reference tree over with ``params_from_numpy``.
-    ``device="meta"`` builds the shapes and types only."""
-    _require_family(cfg)
+    ``device="meta"`` builds the shapes and types only.  The qnet family
+    gets ``QNetwork``'s tree: He-normal ``w [in, out]`` and zero ``b``."""
     device = resolve_device(device)
     gen = None if device.type == "meta" else \
         torch.Generator(device=device).manual_seed(seed)
+    if cfg.family == "qnet":
+        from repro_torch.core.agent import HIDDEN_SIZES, STATE_DIM
+        sizes = (STATE_DIM, *HIDDEN_SIZES, 1)
+        return {"layers": [
+            {"w": Lyr.dense_init(gen, (i, o), torch.float32, (2.0 / i) ** 0.5,
+                                 device=device),
+             "b": torch.zeros((o,), dtype=torch.float32, device=device)}
+            for i, o in zip(sizes[:-1], sizes[1:])]}
+    _require_family(cfg)
     dtype = cfg.torch_dtype
     kw = dict(device=device)
     params: dict = {
@@ -157,23 +169,42 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
     return params
 
 
-def _map(fn, tree: PyTree) -> PyTree:
-    """``fn`` on every leaf of a nested-dict tree, keeping the keys."""
-    return {k: _map(fn, v) for k, v in tree.items()} if isinstance(tree, dict) \
-        else fn(tree)
-
-
-def _leaves(tree: PyTree):
+def _map(fn, tree: PyTree, path: tuple[str, ...] = (), *,
+         with_path: bool = False) -> PyTree:
+    """``fn`` on every leaf of a tree of dicts and lists, keeping its keys
+    and order; with ``with_path``, ``fn(path, leaf)`` with the leaf's key
+    path (list indices as strings, as the reference's ``_key_str``)."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+        return {k: _map(fn, v, path + (str(k),), with_path=with_path)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v, path + (str(i),), with_path=with_path)
+                for i, v in enumerate(tree)]
+    return fn(path, tree) if with_path else fn(tree)
+
+
+def leaves_with_paths(tree: PyTree, path: tuple[str, ...] = ()):
+    """``(path, leaf)`` for every leaf of a tree of dicts and lists, in its
+    key order, with ``_map``'s paths (a spec tuple is one leaf)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaves_with_paths(v, path + (str(k),))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from leaves_with_paths(v, path + (str(i),))
     else:
-        yield tree
+        yield path, tree
+
+
+def abstract_params(cfg: ArchConfig) -> PyTree:
+    """The parameter tree's shapes and types on the ``meta`` device, with
+    no allocation (the dry-run path)."""
+    return init_params(cfg, device="meta")
 
 
 def count_params(cfg: ArchConfig) -> int:
     """Parameter count from a shape-only (``meta``) tree: no allocation."""
-    return sum(math.prod(t.shape) for t in _leaves(init_params(cfg, device="meta")))
+    return sum(math.prod(t.shape) for _, t in leaves_with_paths(abstract_params(cfg)))
 
 
 def active_params(cfg: ArchConfig) -> int:
@@ -601,3 +632,128 @@ def serve_step(params: PyTree, cfg: ArchConfig, cache: PyTree,
 
     h = Lyr.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _unembed(params, cfg, h), {**cache, "pos": pos + 1}
+
+
+# ================================================================== #
+# sharding plan (data only: the dry-run reads it)
+# ================================================================== #
+Spec = tuple            # one entry per leaf dim: an axis name, a tuple of names, or None
+
+
+def _axis_for(dim: int, tp: int) -> bool:
+    return dim % tp == 0
+
+
+def add_fsdp(pspecs: PyTree, cfg: ArchConfig, *, fsdp_axes: tuple[str, ...],
+             fsdp_size: int, min_elements: int = 1_000_000) -> PyTree:
+    """FSDP/ZeRO-3: additionally shard every large leaf over the data axes.
+
+    Picks the first unassigned dim divisible by the data-axis product,
+    skipping the stacked-layer dim 0 (the reference's scan axis), as the
+    reference's ``add_fsdp`` does; leaves under ``min_elements`` keep
+    their spec."""
+    specs = dict(leaves_with_paths(pspecs))
+    axis = fsdp_axes if len(fsdp_axes) > 1 else fsdp_axes[0]
+
+    def widen(path, leaf) -> Spec:
+        spec = specs[path]
+        if math.prod(leaf.shape) < min_elements:
+            return spec
+        parts = list(spec)
+        start = 1 if leaf.dim() >= 2 and leaf.shape[0] <= 256 else 0
+        for d in range(start, len(parts)):
+            if parts[d] is None and leaf.shape[d] % fsdp_size == 0:
+                parts[d] = axis
+                return tuple(parts)
+        return spec
+
+    return _map(widen, abstract_params(cfg), with_path=True)
+
+
+def param_pspecs(cfg: ArchConfig, tp: int = 16, model_axis: str = "model") -> PyTree:
+    """A spec for every leaf of ``abstract_params(cfg)``, in its tree.
+
+    The reference's policy, rule by rule (tensor and expert parallel over
+    ``model_axis``; batch-like dims are the activations' business):
+      * embed [V,D] -> (model, None); unembed [D,V] -> (None, model)
+      * attention: shard the head dim when divisible by tp, else the
+        d_model input dim (row parallel), else replicate; with
+        ``cfg.seq_shard`` an indivisible head count replicates instead
+      * mlp w1/w3 [D,F] -> (None, model); w2 [F,D] -> (model, None)
+      * moe experts [E,D,F] -> (model, None, None) when E % tp == 0
+        (expert parallel: qwen3) else (None, None, model) (mixtral)
+      * ssm projections: the inner dim on model
+      * norms, scalars, the qnet's layers: replicated
+    Every spec lists one entry per dim (the reference's ``P(...)`` may be
+    shorter: its missing entries are ``None``)."""
+    M = model_axis
+
+    def attn_spec(name: str, shape) -> Spec:
+        if name == "wo":                       # [H, Dh, D]
+            if _axis_for(shape[0], tp):
+                return (M, None, None)
+            if cfg.seq_shard:
+                # replicated compute, FSDP shards storage: row-parallel D
+                # under seq-sharded activations all-reduces partial logits
+                # every layer, as the reference measured
+                return (None, None, None)
+            if _axis_for(shape[2], tp):
+                return (None, None, M)
+            return (None, None, None)
+        # wq/wk/wv [D, H_or_K, Dh]
+        if _axis_for(shape[1], tp):
+            return (None, M, None)
+        if cfg.seq_shard:
+            return (None, None, None)
+        if _axis_for(shape[0], tp):
+            return (M, None, None)
+        return (None, None, None)
+
+    def spec_for(path: tuple[str, ...], leaf) -> Spec:
+        name = path[-1]
+        parent = path[-2] if len(path) >= 2 else ""
+        shape = tuple(leaf.shape)
+        off = 1 if path[0] in ("blocks", "enc_blocks") else 0   # leading L dim
+
+        def pad(spec: Spec) -> Spec:
+            return (None,) * off + spec
+
+        if name == "embed":
+            return (M, None) if _axis_for(shape[0], tp) else (
+                (None, M) if _axis_for(shape[1], tp) else (None, None))
+        if name == "unembed":
+            if _axis_for(shape[1], tp):
+                return (None, M)
+            return (M, None) if _axis_for(shape[0], tp) else (None, None)
+        if name == "enc_pos":
+            return (None, None)
+        if parent in ("attn", "cross") or (parent == "shared_attn" and name in
+                                           ("wq", "wk", "wv", "wo")):
+            return pad(attn_spec(name, shape[off:]))
+        if parent == "mlp" or (parent == "shared_attn" and name in ("w1", "w2", "w3")):
+            return pad((None, M) if name in ("w1", "w3") else (M, None))
+        if parent == "moe":
+            if name == "router":
+                return pad((None, None))
+            if _axis_for(shape[off], tp):
+                return pad((M, None, None))
+            return pad((None, None, M) if name in ("w1", "w3") else (None, M, None))
+        if parent == "ssm":
+            rest = len(shape) - off
+            if name in ("in_z", "in_xbc"):
+                return pad((None, M))
+            if name == "in_dt":
+                return pad((None, M) if _axis_for(shape[off + 1], tp) else (None, None))
+            if name in ("conv_w", "conv_b"):
+                return pad((None,) * (rest - 1) + (M,))
+            if name == "out_proj":
+                return pad((M, None))
+            if name == "gate_norm":
+                return pad((M,) if _axis_for(shape[off], tp) else (None,))
+            return pad((None,) * rest)
+        if parent == "vision_proj":
+            return (None, M) if name == "w" else (M,)
+        # norms, scalars, biases, the qnet's layers
+        return (None,) * len(shape)
+
+    return _map(spec_for, abstract_params(cfg), with_path=True)

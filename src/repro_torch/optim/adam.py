@@ -1,4 +1,5 @@
-"""Port of ``repro.optim.adam``: Adam over lists of tensors, by hand.
+"""Port of ``repro.optim.adam``: Adam and SGD over lists of tensors, by
+hand.
 
 The paper trains every model with Adam(lr=1e-4) (Appendix C, Table 3).
 The API mirrors the reference's:
@@ -112,6 +113,42 @@ def adam(
             mu.append(m_new.to(m.dtype))
             nu.append(v_new.to(v.dtype))
         return updates, OptState(step=step, mu=mu, nu=nu)
+
+    return Optimizer(init=init, update=update)
+
+
+def sgd(
+    lr: float | Schedule,
+    momentum: float = 0.0,
+    nesterov: bool = False,
+    clip_norm: float | None = None,
+) -> Optimizer:
+    """SGD with optional (Nesterov) momentum, the reference's: ``m <-
+    momentum m + g`` in the parameter's type, the step ``-lr (g + momentum
+    m)`` with Nesterov, else ``-lr m``; ``nu`` stays the zeros it starts as."""
+    schedule = _as_schedule(lr)
+
+    def init(params: Sequence[torch.Tensor]) -> OptState:
+        device = params[0].device if params else None
+        zeros = [torch.zeros_like(p) for p in params]
+        return OptState(step=torch.zeros((), dtype=torch.int32, device=device),
+                        mu=zeros, nu=zeros)
+
+    @torch.no_grad()
+    def update(grads: Sequence[torch.Tensor], state: OptState,
+               params: Sequence[torch.Tensor]
+               ) -> tuple[list[torch.Tensor], OptState]:
+        if clip_norm is not None:
+            grads = clip_by_global_norm(grads, clip_norm)
+        step = state.step + 1
+        lr_t = schedule(step)
+        updates, mu = [], []
+        for g, m in zip(grads, state.mu):
+            m_new = momentum * m + g
+            d = g + momentum * m_new if nesterov else m_new
+            updates.append((-lr_t * d.to(torch.float32)).to(g.dtype))   # lr_t is f32, as in JAX
+            mu.append(m_new)
+        return updates, OptState(step=step, mu=mu, nu=state.nu)
 
     return Optimizer(init=init, update=update)
 

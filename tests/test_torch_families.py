@@ -155,11 +155,25 @@ def test_params_from_numpy_carries_the_new_leaves(arch):
 
 
 def test_qnet_family_names_its_roadmap_item():
-    cfg = dataclasses.replace(get_config("stablelm-1.6b").reduced(), family="qnet")
-    with pytest.raises(NotImplementedError, match="A7"):
-        init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
+    """The qnet family (damoldqn) builds the reference's QNetwork tree,
+    shapes and types, on the CPU and on ``meta``; it has no LM cache or
+    forward, and raises ValueError there as the reference's init_cache does."""
+    cfg = get_config("damoldqn")
+    ref = jax_init_params(jax_get_config("damoldqn"), jax.random.PRNGKey(0))
+    want = [(tuple(l.shape), str(l.dtype)) for l in jax.tree_util.tree_leaves(ref)]
+    for device in ("cpu", "meta"):
+        tree = init_params(cfg, 0, device=device)
+        assert set(tree) == {"layers"} and all(set(l) == {"w", "b"} for l in tree["layers"])
+        got = [(tuple(t.shape), str(t.dtype).split(".")[1])
+               for l in tree["layers"] for t in (l["b"], l["w"])]
+        assert got == want
+    assert count_params(cfg) == jax_count_params(jax_get_config("damoldqn"))
+    with pytest.raises(ValueError):
+        jax_init_cache(jax_get_config("damoldqn"), 1, 4)
+    with pytest.raises(ValueError, match="qnet"):
         init_cache(cfg, 1, 4, device="cpu")
+    with pytest.raises(ValueError, match="qnet"):
+        forward_train(init_params(cfg, 0, device="cpu"), cfg, {"tokens": np.ones((1, 4))})
 
 
 # ------------------------------------------------------------------ #

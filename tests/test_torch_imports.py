@@ -208,7 +208,7 @@ def test_port_has_the_families_slice():
             "from repro_torch.models.layers import cross_kv; "
             "from repro_torch.models import active_params; "
             "from repro_torch.configs import list_archs; "
-            "assert len(list_archs()) == 10, list_archs(); "
+            "assert len(list_archs()) == 11, list_archs(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad; print('clean')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -219,6 +219,44 @@ def test_port_has_the_families_slice():
     stubs = [p for p in PORT_FILES if "comes with the encdec family" in p.read_text()
              or "families raise in ``init_params``" in p.read_text()
              or "is not ported yet (ROADMAP A7); the port" in p.read_text()]
+    assert not stubs, stubs
+
+
+def test_port_has_the_dryrun_slice():
+    """The dry-run half: the damoldqn config, the sharding plan, the
+    production mesh, the specs, the roofline and its op walk, the dry-run
+    and slurm launchers, ``optim.sgd`` and the packed exports, importable
+    without JAX or ``repro``; no port file still cites the dry-run slice as
+    missing."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for rel in ("src/repro_torch/configs/damoldqn.py",
+                "src/repro_torch/launch/dryrun.py",
+                "src/repro_torch/launch/specs.py",
+                "src/repro_torch/launch/slurm.py",
+                "src/repro_torch/roofline/__init__.py",
+                "src/repro_torch/roofline/analysis.py",
+                "src/repro_torch/roofline/op_walk.py"):
+        assert rel in names
+    code = ("import sys; "
+            "import repro_torch.launch.dryrun, repro_torch.launch.slurm; "
+            "from repro_torch.launch.specs import input_specs, zero_opt_shardings; "
+            "from repro_torch.launch.mesh import make_production_mesh; "
+            "from repro_torch.models import abstract_params, param_pspecs; "
+            "from repro_torch.models.model import add_fsdp; "
+            "from repro_torch.roofline import HW_H100, aggregate, roofline_terms; "
+            "from repro_torch.optim import sgd; "
+            "from repro_torch.kernels.packed_qnet import pack_w1, packed_qnet_ref; "
+            "from repro_torch.configs import list_archs; "
+            "assert 'damoldqn' in list_archs(); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
+            "assert not bad, bad; print('clean')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+    stubs = [p for p in PORT_FILES if "ROADMAP A7" in p.read_text()
+             or "comes with the dry-run slice" in p.read_text()]
     assert not stubs, stubs
 
 

@@ -359,9 +359,26 @@ def test_train_step_accumulates_in_the_parameter_type():
 
 
 def test_qnet_train_step_names_its_roadmap_item():
-    cfg = dataclasses.replace(get_config("stablelm-1.6b").reduced(), family="qnet")
-    with pytest.raises(NotImplementedError, match="A7"):
-        make_train_step(cfg)
+    """``make_train_step(damoldqn)`` is the double-DQN step: on the
+    reference's ``tests/test_models.py::test_qnet_train_step`` batch (no
+    legal next action) its loss equals the reference's within 1e-5
+    relative (tests/test_torch_dryrun.py holds the step in full)."""
+    ref_cfg, cfg = jax_get_config("damoldqn"), get_config("damoldqn")
+    params = jax.tree_util.tree_map(np.asarray, jax_init_params(ref_cfg, jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(0)
+    batch = {"states": rng.random((8, 2049)).astype(np.float32),
+             "rewards": rng.random(8).astype(np.float32),
+             "dones": np.ones(8, np.float32),
+             "next_fps": np.zeros((8, 4, 2049), np.float32),
+             "next_mask": np.zeros((8, 4), np.float32)}
+    jstep, jopt = jax_make_train_step(ref_cfg)
+    _, _, want = jax.jit(jstep)(params, params, jopt.init(params), batch)
+    step, opt = make_train_step(cfg)
+    tp = params_from_numpy(params, device="cpu")
+    new, state, loss = step(tp, tp, opt.init(tp), batch)
+    np.testing.assert_allclose(float(loss), float(want), rtol=LOSS_RTOL)
+    assert int(state.step) == 1 and len(state.mu) == 10
+    assert [l["w"].shape for l in new["layers"]] == [l["w"].shape for l in tp["layers"]]
 
 
 # ------------------------------------------------------------------ #

@@ -57,15 +57,17 @@ def _close(got: torch.Tensor, want, tol=TOL):
 
 
 def test_registry_holds_the_ported_archs():
-    """Every LM config of the reference; its qnet config (damoldqn) comes
-    with the dry-run slice (ROADMAP A7)."""
+    """Every config of the reference: the LM configs and its qnet config
+    (damoldqn), the latter equal to the reference's field by field."""
     from repro.configs import list_archs as jax_list_archs
     assert list_archs() == sorted(ARCHS + [
-        "granite-20b", "granite-34b", "mixtral-8x22b", "paligemma-3b",
+        "damoldqn", "granite-20b", "granite-34b", "mixtral-8x22b", "paligemma-3b",
         "qwen3-moe-235b-a22b", "whisper-large-v3", "yi-34b"])
-    assert list_archs() == [a for a in jax_list_archs() if a != "damoldqn"]
+    assert list_archs() == jax_list_archs()
+    assert dataclasses.asdict(get_config("damoldqn")) == \
+        dataclasses.asdict(jax_get_config("damoldqn"))
     with pytest.raises(KeyError):
-        get_config("damoldqn")
+        get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
