@@ -770,6 +770,13 @@ def _trainer(setup, device="cuda", faults=False, episodes=TRAIN_EPISODES,
     return tr
 
 
+def _host_s(tr) -> tuple[float, float]:
+    """The trainer's host seconds in ``rollout_episode`` and in
+    ``run_updates`` (its spans ``trainer.rollout`` and ``trainer.updates``)."""
+    s = tr.trace_stats()["seconds"]
+    return s.get("trainer.rollout", 0.0), s.get("trainer.updates", 0.0)
+
+
 def _train_signature(tr):
     bufs = [[getattr(b, k).tobytes() for k in
              ("_state_bits", "_state_frac", "_rewards", "_dones", "_next_bits",
@@ -803,12 +810,13 @@ def phase_train() -> int:
         steps = tr.engine.n_env_steps
         timing = tr.dispatch_timing()
         chem = tr.engine.chem_stats()
-        step_ms = tr.rollout_s * 1e3 / steps
+        rollout_s, learner_s = _host_s(tr)
+        step_ms = rollout_s * 1e3 / steps
         busy = (timing["h2d_ms"] + timing["kernel_ms"]) / step_ms
         print(f"train ({run}): {TRAIN_EPISODES} episodes in {wall:.3f} s | "
-              f"{steps} env steps, {steps / tr.rollout_s:.2f} env steps/s | "
-              f"{tr.n_updates} updates, {tr.n_updates / tr.learner_s:.2f} "
-              f"updates/s, {tr.learner_s * 1e3 / tr.n_updates:.2f} ms per "
+              f"{steps} env steps, {steps / rollout_s:.2f} env steps/s | "
+              f"{tr.n_updates} updates, {tr.n_updates / learner_s:.2f} "
+              f"updates/s, {learner_s * 1e3 / tr.n_updates:.2f} ms per "
               f"update (host clock, ends synced) | rewards {tr.reward_log} | "
               f"losses {tr.loss_log}", flush=True)
         print(f"train ({run}): per Q dispatch ({tr.cfg.n_workers} x "
@@ -930,13 +938,14 @@ def _mesh_run(setup, nd: int, workers: int = 4, sync: str = "episode",
         tr.train_episode()
         tr.reserve_candidates(int(tr.candidate_capacity * 1.3))
     snap = tr.state_dict() if snapshot else None
-    marks = (tr.engine.n_env_steps, tr.rollout_s, tr.n_updates, tr.learner_s)
+    marks = (tr.engine.n_env_steps, tr.n_updates, *_host_s(tr))
     with counter.window() as measured:
         while tr.episode < MESH_EPISODES:
             tr.train_episode()
     tr.close()
-    rates = ((tr.engine.n_env_steps - marks[0]) / (tr.rollout_s - marks[1]),
-             (tr.n_updates - marks[2]) / (tr.learner_s - marks[3]))
+    rollout_s, learner_s = _host_s(tr)
+    rates = ((tr.engine.n_env_steps - marks[0]) / (rollout_s - marks[2]),
+             (tr.n_updates - marks[1]) / (learner_s - marks[3]))
     launches = packed_qnet_stacked.launches
     tag = f"mesh: W={workers} nd={nd} sync={sync}"
     if launches != nd * tr.n_q_dispatches or launches == 0:
@@ -1114,14 +1123,15 @@ def phase_train_rl():
     steps = tr.engine.n_env_steps
     chem = tr.engine.chem_stats()
     timing = tr.dispatch_timing()
-    step_ms = tr.rollout_s * 1e3 / steps
+    rollout_s, learner_s = _host_s(tr)
+    step_ms = rollout_s * 1e3 / steps
     print(f"train_rl: {RL_EPISODES} episodes in {wall:.3f} s (checkpoints "
-          f"included) | {steps} env steps, {steps / tr.rollout_s:.2f} env "
-          f"steps/s | {tr.n_updates} updates, {tr.n_updates / tr.learner_s:.2f} "
+          f"included) | {steps} env steps, {steps / rollout_s:.2f} env "
+          f"steps/s | {tr.n_updates} updates, {tr.n_updates / learner_s:.2f} "
           f"updates/s | rewards {tr.reward_log} | losses {tr.loss_log}",
           flush=True)
     print(f"train_rl: per env step {step_ms:.2f} ms wall: predictor "
-          f"{svc.predict_s * 1e3 / steps:.2f} ms ({100 * svc.predict_s / tr.rollout_s:.1f}%; "
+          f"{svc.predict_s * 1e3 / steps:.2f} ms ({100 * svc.predict_s / rollout_s:.1f}%; "
           f"model batches {svc.model_s * 1e3 / steps:.2f} ms, "
           f"{svc.n_predictor_batches} batches of {svc.n_predictor_mols} "
           f"molecules, cache hit rate {svc.cache.hit_rate:.3f}), host "

@@ -68,7 +68,7 @@ through ``fused_qnet``.
 
 from __future__ import annotations
 
-import time
+import functools
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field, replace
 
@@ -87,6 +87,7 @@ from repro_torch.core.packed_batch import densify_batch, packed_nbytes
 from repro_torch.core.replay import FP_BYTES, ReplayBuffer
 from repro_torch.core.reward import RewardConfig
 from repro_torch.core.rollout import CHEM_MODES, STATE_DIM, RolloutEngine
+from repro_torch.core.spans import SpanRecorder
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_qnet.ops import fused_qnet
 from repro_torch.kernels.packed_qnet.ops import (dense_qnet_stacked,
@@ -149,6 +150,19 @@ class TrainerConfig:
     dqn: DQNConfig = field(default_factory=lambda: DQNConfig(epsilon_decay=0.97))
     env: EnvConfig = field(default_factory=EnvConfig)
     seed: int = 0
+
+
+def _spanned(name: str):
+    """Method decorator: each call is one span ``name`` of the trainer's
+    recorder; the method's frame, and what it alone holds (a round's batch,
+    a worker's autograd graph), is freed inside the span."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(self, *args, **kwargs):
+            with self._trace.span(name):
+                return fn(self, *args, **kwargs)
+        return call
+    return wrap
 
 
 def _worker_layers(layers: Layers, w: int) -> Layers:
@@ -472,8 +486,8 @@ class DistributedTrainer:
         self.n_updates = 0         # learner update steps issued
         self.h2d_update_bytes = 0  # host->device bytes shipped by update batches
         self.acting_h2d_bytes = 0  # host->device bytes shipped by fleet Q batches
-        self.rollout_s = 0.0       # host seconds in rollout_episode
-        self.learner_s = 0.0       # host seconds in run_updates (ends synced)
+        # host spans and the worker-update counter (``trace_stats``)
+        self._trace = SpanRecorder()
         self._sampler_pool: ThreadPoolExecutor | None = None  # packed_pipelined
 
         # stacked per-worker parameters, [W_pad / nd, ...] per shard: every
@@ -581,6 +595,7 @@ class DistributedTrainer:
                                        per_shard[s][k].shape[0]))
         return out
 
+    @_spanned("trainer.sync")
     def _sync_episode(self) -> None:
         """Average parameters and Adam moments across the workers; keep
         every worker's int step."""
@@ -591,6 +606,7 @@ class DistributedTrainer:
             sh.params = unflat(p)
             sh.opt = OptState(step=sh.opt.step, mu=m[:n], nu=m[n:])
 
+    @_spanned("trainer.worker_grad")
     def _worker_loss(self, sh: _Shard, i: int, batch: dict[str, torch.Tensor]):
         """The loss, |TD| and gradients of row ``i`` of shard ``sh`` on its
         own parameters and batch."""
@@ -601,6 +617,7 @@ class DistributedTrainer:
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), td, list(grads)
 
+    @_spanned("trainer.worker_adam")
     @torch.no_grad()
     def _apply_worker(self, sh: _Shard, i: int,
                       grads: list[torch.Tensor]) -> None:
@@ -618,6 +635,7 @@ class DistributedTrainer:
             dst[i].copy_(new)
         st.step[i] = s2.step
 
+    @_spanned("trainer.update")
     def _update_once(self, batches: list[dict[str, torch.Tensor]], packed: bool):
         """One optimiser step under the configured sync mode from one batch
         dict per shard (``_ship``); returns the per-worker ``(loss [W_pad],
@@ -628,7 +646,8 @@ class DistributedTrainer:
         step (episode mode) or the fleet's mean update (step mode), as the
         reference's masked update bodies do."""
         if packed:
-            batches = [densify_batch(b) for b in batches]
+            with self._trace.span("trainer.densify"):
+                batches = [densify_batch(b) for b in batches]
         step_mode = self.cfg.sync_mode == "step"
         losses, tds, grads = [], [], []
         for sh, batch in zip(self._shards, batches):
@@ -655,6 +674,7 @@ class DistributedTrainer:
                 for i in range(sh.rows.stop - sh.rows.start):
                     self._apply_worker(sh, i, g)
         self.n_updates += 1
+        self._trace.count("trainer.worker_updates", self.n_live_workers)
         return torch.stack(losses), torch.stack(tds)
 
     # ------------------------------------------------------------ #
@@ -664,16 +684,13 @@ class DistributedTrainer:
         """One paper episode: rollouts on all workers, local training
         updates, then (episode mode) the parameter sync."""
         cfg = self.cfg
-        t0 = time.perf_counter()
-        records = self.rollout_episode()
-        self.rollout_s += time.perf_counter() - t0
+        with self._trace.span("trainer.rollout"):
+            records = self.rollout_episode()
 
         losses = []
         min_fill = min(len(b) for b in self.buffers)
         if min_fill >= cfg.train_batch_size:
-            t0 = time.perf_counter()
             losses = self.run_updates(cfg.updates_per_episode)
-            self.learner_s += time.perf_counter() - t0
 
         if cfg.sync_mode == "episode":
             self._sync_episode()
@@ -768,6 +785,20 @@ class DistributedTrainer:
         return {"dispatches": v.n_timed, "h2d_ms": v.h2d_ms / v.n_timed,
                 "kernel_ms": v.kernel_ms / v.n_timed}
 
+    def trace_stats(self) -> dict[str, dict]:
+        """Totals since construction of the trainer's host spans and
+        counters (``core/spans.py``): ``{"seconds", "calls", "counts"}``.
+
+        Spans: ``trainer.updates`` (``run_updates``) holds
+        ``trainer.sample``, ``trainer.ship``, ``trainer.update`` and
+        ``trainer.loss_read``; ``trainer.update`` (``_update_once``) holds
+        ``trainer.densify``, ``trainer.worker_grad`` (one live worker's
+        loss and gradients, enqueued) and ``trainer.worker_adam`` (one
+        worker's Adam step); ``trainer.rollout`` and ``trainer.sync`` are
+        ``train_episode``'s.  Counter ``trainer.worker_updates``: live
+        worker updates."""
+        return self._trace.snapshot()
+
     def _select_action(self, q: np.ndarray, w: int) -> int:
         """Decaying eps-greedy from worker ``w``'s private RNG stream."""
         rng = self._worker_rngs[w]
@@ -809,6 +840,7 @@ class DistributedTrainer:
             per = per + [zero] * (self.n_padded_workers - self.n_live_workers)
         return {k: np.stack([p[k] for p in per]) for k in per[0]}
 
+    @_spanned("trainer.sample")
     def _stacked_sample_np(self) -> dict[str, np.ndarray]:
         """One dense float32 sample per worker buffer, stacked ``[W_pad, B,
         ...]``."""
@@ -817,6 +849,7 @@ class DistributedTrainer:
             [b.sample(self.cfg.train_batch_size, self.cfg.max_candidates, **kw)
              for b in self.buffers])
 
+    @_spanned("trainer.sample")
     def _stacked_sample_packed_np(self) -> dict[str, np.ndarray]:
         """u8 planes + scalars per worker buffer, stacked ``[W_pad, B,
         ...]``: the same seeded draws as ``_stacked_sample_np``."""
@@ -826,6 +859,7 @@ class DistributedTrainer:
                              **kw)
              for b in self.buffers])
 
+    @_spanned("trainer.ship")
     def _ship(self, host_batch: dict[str, np.ndarray]
               ) -> list[dict[str, torch.Tensor]]:
         """One batch dict per shard, on its device (``shard_batch``)."""
@@ -839,8 +873,10 @@ class DistributedTrainer:
         for w, buf in enumerate(self.buffers):
             buf.update_priorities(td_host[w])
 
+    @_spanned("trainer.loss_read")
     def _loss_scalar(self, loss: torch.Tensor) -> float:
-        """Scalar loss over the live workers of a ``[W_pad]`` loss vector."""
+        """Scalar loss over the live workers of a ``[W_pad]`` loss vector;
+        the host waits here for the round's device work."""
         return float(loss.cpu().numpy()[: self.n_live_workers].mean())
 
     def _get_sampler(self) -> ThreadPoolExecutor:
@@ -849,6 +885,7 @@ class DistributedTrainer:
                 max_workers=1, thread_name_prefix="replay-sample")
         return self._sampler_pool
 
+    @_spanned("trainer.updates")
     def run_updates(self, n: int) -> list[float]:
         """``n`` optimiser steps from the replay buffers under
         ``cfg.learner``.  ``packed_pipelined`` draws update k+1's batch on
