@@ -19,9 +19,13 @@ Phases, each of which exits non-zero on failure:
              ``packed_qnet_stacked`` also that dead workers' zero planes
              evaluate like zero input without touching live workers, that
              its packed and dense loaders agree bit for bit, and that each
-             worker's Q equals ``fused_qnet``'s on its densified rows; time
-             the kernel, the plain version and a library yardstick with
-             CUDA events beside the card's bound for the same work.
+             worker's Q equals ``fused_qnet``'s on its densified rows; for
+             ``stacked_adam`` (the learner's fused Adam) that it equals its
+             plain version bit for bit at odd leaf sizes, a gradient of row
+             stride 0, no clip, and 512 workers x 2,693,825 parameters with
+             the clip biting on half the rows; time the kernel, the plain
+             version and a library yardstick with CUDA events beside the
+             card's bound for the same work.
 4. serve   - the serving path: ``repro_torch.launch.serve_molopt`` on the
              GPU at full width (8 slots, 32 requests, deadlines, poisoned
              requests, a seeded FaultPlan).  Every request must end
@@ -55,7 +59,13 @@ Phases, each of which exits non-zero on failure:
              in both sync modes equal to its unpadded nd = 1 run on the
              live rows, and the episode-mode run's ``state_dict`` after
              episode 1 restored into a fresh nd = 4 trainer ends
-             bit-identical on every key.
+             bit-identical on every key.  Last, the learner's stacked step
+             at the paper's widths and B 32 x C 64, where nd changes how
+             many rows share one batched product: every run length from
+             ``_MIN_RUN`` to ``_chunk_rows`` gives each row the bits it has
+             in a run of ``_chunk_rows``, and fleets of W = 6, 64 and 300
+             (runs of 6, 64 and 100 at nd = 1; 2 (padded), 16 and 75 at
+             nd = 4) take two updates bit-identical across nd.
 6. train_rl - the paper's launcher path (``repro_torch.launch.train --mode
              rl``) on the GPU: ``ensure_trained`` trains Alfabet-S and
              AIMNet-S at 1500 steps each into a fresh cache under
@@ -412,7 +422,8 @@ def phase_build(report: bool = True) -> None:
     from repro_torch.kernels.fused_qnet import build as fq_build
     from repro_torch.kernels.packed_qnet import build as pq_build
     from repro_torch.kernels.ssd_scan import build as ss_build
-    modules = (fq_build, pq_build, fa_build, ss_build)
+    from repro_torch.kernels.stacked_adam import build as sa_build
+    modules = (fq_build, pq_build, fa_build, ss_build, sa_build)
     builds = [m.nvcc_build() for m in modules]           # one per source
     t0 = time.perf_counter()
     for b in builds:
@@ -658,6 +669,128 @@ def phase_stacked_kernel(peak) -> list[dict]:
     return rows
 
 
+def _adam_state(widths, W: int, gen):
+    """Seeded stacked Adam inputs on the card: leaves ``[W, in, out]`` and
+    ``[W, out]`` for each pair of ``widths``; gradients of norm ~1.6 (clip
+    10 idle) on rows 0, 2, 4, ..., ~160 on odd rows (the clip bites) and 0
+    on row 2 (a dead worker's); moments as after a few steps; each row's
+    own step."""
+    import torch
+    shapes = [s for i, o in zip(widths[:-1], widths[1:]) for s in ((i, o), (o,))]
+    rnd = lambda shape, scale: scale * torch.randn((W,) + shape, generator=gen,
+                                                   device="cuda")
+    row = torch.where(torch.arange(W, device="cuda") % 2 == 0, 1.0, 100.0)
+    row[2:3] = 0.0
+    n = sum(math.prod(s) for s in shapes)
+    g = [rnd(s, 1.6 / n ** 0.5) * row.view((W,) + (1,) * len(s)) for s in shapes]
+    p = [rnd(s, 0.05) for s in shapes]
+    m = [rnd(s, 1e-3) for s in shapes]
+    v = [rnd(s, 1e-3).square() for s in shapes]
+    step = (torch.arange(W, device="cuda", dtype=torch.int32) % 5) + 3
+    return p, g, m, v, step
+
+
+def _adam_copy(p, m, v, step, rows=slice(None)):
+    """Fresh copies of ``rows`` of the state a step writes."""
+    return ([x[rows].clone() for x in p], [x[rows].clone() for x in m],
+            [x[rows].clone() for x in v], step[rows].clone())
+
+
+def _adam_equal(a, b) -> bool:
+    import torch
+    flat = lambda s: [*s[0], *s[1], *s[2], s[3]]
+    return all(torch.equal(x, y) for x, y in zip(flat(a), flat(b)))
+
+
+def phase_stacked_adam(peak) -> list[dict]:
+    """``stacked_adam`` against its plain version on the card: bit for bit
+    at small and odd leaf sizes (element and float4 loads), a gradient of
+    row stride 0, and the paper's 512 workers x 2,693,825 parameters (the
+    plain version in row slices of 64, each row being its own); a rerun
+    bit-identical; kernel, plain, library and bound times at the full
+    stack."""
+    import torch
+    from repro_torch.core.agent import STATE_DIM
+    from repro_torch.kernels.stacked_adam.ops import stacked_adam
+    from repro_torch.kernels.stacked_adam.ref import stacked_adam_ref
+
+    hp = dict(lr=1e-4, b1=0.9, b2=0.999, eps=1e-8, clip=10.0)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = (((STATE_DIM, 32, 16, 8, 4, 1), 3, False),
+             ((9, 7, 5, 3, 1), 8, False),
+             ((STATE_DIM, 32, 16, 8, 4, 1), 5, True))
+    for widths, W, shared in cases:
+        p, g, m, v, step = _adam_state(widths, W, gen)
+        if shared:                         # one gradient for every row
+            g = [x[1:2].expand_as(x) for x in g]
+        a, b = _adam_copy(p, m, v, step), _adam_copy(p, m, v, step)
+        stacked_adam(a[0], g, a[1], a[2], a[3], **hp)
+        stacked_adam_ref(b[0], g, b[1], b[2], b[3], **hp)
+        torch.cuda.synchronize()
+        if not _adam_equal(a, b):
+            fail(f"stacked_adam widths {widths} W={W} shared={shared}: "
+                 f"kernel differs from the plain version")
+    print(f"stacked_adam: {len(cases)} small cases (odd leaf sizes, row stride "
+          f"0, a zero gradient, the clip biting on odd rows) bit-equal to the "
+          f"plain version", flush=True)
+
+    widths = (STATE_DIM, 1024, 512, 128, 32, 1)
+    W = 512
+    p, g, m, v, step = _adam_state(widths, W, gen)
+    a, twice = _adam_copy(p, m, v, step), _adam_copy(p, m, v, step)
+    stacked_adam(a[0], g, a[1], a[2], a[3], **hp)
+    stacked_adam(twice[0], g, twice[1], twice[2], twice[3], **hp)
+    torch.cuda.synchronize()
+    if not _adam_equal(a, twice):
+        fail("stacked_adam: two launches on one input differ")
+    del twice
+    for lo in range(0, W, 64):
+        rows = slice(lo, lo + 64)
+        b = _adam_copy(p, m, v, step, rows)
+        stacked_adam_ref(b[0], [x[rows] for x in g], b[1], b[2], b[3], **hp)
+        if not _adam_equal(([x[rows] for x in a[0]], [x[rows] for x in a[1]],
+                            [x[rows] for x in a[2]], a[3][rows]), b):
+            fail(f"stacked_adam: {W} x full width, rows {lo}-{lo + 63} differ "
+                 f"from the plain version")
+        del b
+    print(f"stacked_adam: {W} workers x full width bit-equal to the plain "
+          f"version (the clip biting on odd rows), rerun bit-identical",
+          flush=True)
+
+    def library():                         # yardstick only: no per-row clip
+        torch._foreach_mul_(a[1], hp["b1"])
+        torch._foreach_add_(a[1], g, alpha=1 - hp["b1"])
+        torch._foreach_mul_(a[2], hp["b2"])
+        torch._foreach_addcmul_(a[2], g, g, value=1 - hp["b2"])
+        denom = torch._foreach_sqrt(a[2])
+        torch._foreach_div_(denom, (1 - hp["b2"] ** 4) ** 0.5)
+        torch._foreach_add_(denom, hp["eps"])
+        torch._foreach_addcdiv_(a[0], a[1], denom,
+                                value=-hp["lr"] / (1 - hp["b1"] ** 4))
+
+    n = W * sum(x[0].numel() for x in p)
+    nbytes = 4.0 * n * 8          # g for the norms, then p, g, m, v in, p, m, v out
+    row = {"name": "stacked_adam", "route": "cuda",
+           "source": "src/repro_torch/kernels/stacked_adam/csrc/stacked_adam.cu",
+           "replaces": None, "workers": W, "params_per_worker": n // W,
+           "launches": None,
+           "ms": cuda_ms(lambda: stacked_adam(a[0], g, a[1], a[2], a[3], **hp),
+                         10),
+           "library_ms": cuda_ms(library, 5, warmup=1),
+           "bound_ms": nbytes / peak[1] * 1e3, "bound_by": "bytes",
+           "gbytes": nbytes / 1e9}
+    del p, m, v                  # room for the plain version's temporaries
+    row["plain_ms"] = cuda_ms(lambda: stacked_adam_ref(
+        a[0], g, a[1], a[2], a[3], **hp), 3, warmup=1)
+    print(f"stacked_adam: {W} x {n // W:,} f32: kernel {row['ms']:.4f} ms "
+          f"({nbytes / row['ms'] / 1e6:.1f} GB/s), bound {row['bound_ms']:.4f} "
+          f"ms (bytes), plain {row['plain_ms']:.4f} ms (all {W} rows in one "
+          f"call), library "
+          f"(torch._foreach_* in place, no clip) {row['library_ms']:.4f} ms",
+          flush=True)
+    return [row]
+
+
 def _signature(svc):
     return [(r.request_id, r.status, r.steps_used, r.degraded_steps, r.latency,
              r.best_smiles, None if r.best_reward is None
@@ -730,6 +863,109 @@ def phase_serve() -> int:
     print("serve: rerun bit-identical; epsilon=1 GPU run bit-identical to "
           "the CPU run", flush=True)
     return runs[0][2]
+
+
+def _learner_trees(W: int, seed: int):
+    """Seeded full-width stacked parameters and targets on the card, one
+    row a worker (``[W, ...]`` leaves, He-normal weights)."""
+    import torch
+    from repro_torch.core.agent import HIDDEN_SIZES, STATE_DIM
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    sizes = (STATE_DIM,) + HIDDEN_SIZES + (1,)
+    return [[t for i, o in zip(sizes[:-1], sizes[1:])
+             for t in (rnd(W, i, o) * (2.0 / i) ** 0.5, 0.1 * rnd(W, o))]
+            for _ in range(2)]
+
+
+def _learner_batch(W: int, seed: int, W_pad: int | None = None):
+    """A seeded dense ``[W_pad, B, ...]`` learner batch on the card at the
+    paper's B 32 x C 64 (a fifth of the next-state slots empty, a fifth of
+    the rows terminal), all-zero on rows ``W`` on (dead workers')."""
+    import torch
+    from repro_torch.core.agent import STATE_DIM
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    uni = lambda *shape: torch.rand(shape, generator=gen, device="cuda")
+    B, C = 32, 64
+    batch = {"states": (uni(W, B, STATE_DIM) < 0.3).float(),
+             "next_fps": (uni(W, B, C, STATE_DIM) < 0.3).float(),
+             "next_mask": (uni(W, B, C) < 0.8).float(),
+             "rewards": rnd(W, B), "dones": (uni(W, B) < 0.2).float()}
+    batch["next_fps"] *= batch["next_mask"].unsqueeze(-1)
+    pad = (W_pad or W) - W
+    return {k: torch.cat([v, v.new_zeros((pad,) + v.shape[1:])])
+            for k, v in batch.items()}
+
+
+def _mesh_run_lengths(setup) -> None:
+    """The learner's stacked step at the paper's widths where nd changes
+    the rows a batched product holds: every run length bit-equal to the
+    longest run, then whole fleets bit-identical at nd = 1 and 4."""
+    import torch
+    from repro_torch.core import distributed as D
+    from repro_torch.core.agent import DQNConfig, QNetwork, flat
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.predictors.service import OracleService
+
+    discount = DQNConfig().discount
+    leaves, target = _learner_trees(128, 11)
+    batch = _learner_batch(128, 11)
+    full = D._loss_grad(leaves, target, batch, discount)
+    for n in range(D._MIN_RUN, 128):
+        rows = slice(128 - n, 128)         # a run at an offset in its stack
+        grads, loss, td = D._loss_grad(
+            [t[rows] for t in leaves], [t[rows] for t in target],
+            {k: v[rows] for k, v in batch.items()}, discount)
+        if not (all(torch.equal(g, f[rows]) for g, f in zip(grads, full[0]))
+                and torch.equal(loss, full[1][rows])
+                and torch.equal(td, full[2][rows])):
+            fail(f"mesh: a stacked run of {n} rows gives other gradient, loss "
+                 f"or |TD| bits than the same rows in a run of 128")
+    del leaves, target, batch, full, grads
+    print(f"mesh: the stacked gradient at full width, B 32 x C 64: runs of "
+          f"{D._MIN_RUN} to 127 rows bit-equal, row by row, to a run of 128",
+          flush=True)
+
+    train, rcfg = setup
+    for W in (MESH_RAGGED, 64, 300):
+        sig, runs = {}, {}
+        for nd in (1, 4):
+            cfg = D.TrainerConfig(n_workers=W, mols_per_worker=1,
+                                  learner="dense", seed=0)
+            tr = D.DistributedTrainer(
+                cfg, (list(train) * 2)[:W], OracleService(), rcfg,
+                network=QNetwork(generator=torch.Generator().manual_seed(0),
+                                 device="cpu"),
+                mesh=make_host_mesh(nd, pool=["cuda"] * nd))
+            W_pad = tr.n_padded_workers
+            trees = _learner_trees(W, 12)
+            for sh in tr._shards:                # the live rows differ
+                lo, hi = sh.rows.start, min(sh.rows.stop, W)
+                for dst, src in zip((sh.params, sh.target), trees):
+                    for d, x in zip(flat(dst), src):
+                        d[:max(0, hi - lo)].copy_(x[lo:hi])
+            del trees
+            out = []
+            chunks = tr.trace_stats()["counts"].get("trainer.stacked_chunks", 0)
+            for seed in (13, 14):
+                batch = _learner_batch(W, seed, W_pad)
+                loss, td = tr._update_once(shard_batch(batch, tr.mesh),
+                                           packed=False)
+                out += [loss[:W].cpu(), td[:W].cpu()]
+                del batch
+            runs[nd] = (tr.trace_stats()["counts"]["trainer.stacked_chunks"]
+                        - chunks) // 2
+            sig[nd] = out + [t[:W].cpu() for t in flat(tr.params)]
+            del tr
+            torch.cuda.empty_cache()
+        if not all(map(torch.equal, sig[1], sig[4])):
+            fail(f"mesh: W={W} stacked updates differ between nd=1 and nd=4")
+        print(f"mesh: W={W} at full width, two stacked updates (B 32 x C 64): "
+              f"losses, |TD| and every parameter bit identical at nd 1 "
+              f"({runs[1]} run(s) of live rows an update) and nd 4 "
+              f"({runs[4]})", flush=True)
 
 
 def _train_setup():
@@ -1027,6 +1263,7 @@ def phase_mesh(card: str) -> dict:
         print(f"mesh: padded nd=4 state_dict ({len(snap)} keys, [8, ...] "
               f"leaves) restored into a fresh nd=4 trainer at episode 1 ends "
               f"bit-identical on every key", flush=True)
+    _mesh_run_lengths(setup)
     return launches
 
 
@@ -2240,7 +2477,10 @@ def _lm_train_full_width() -> dict:
     from repro_torch.models import count_params, init_params
     from repro_torch.optim.adam import apply_updates
 
-    kernels = (fused_qnet, packed_qnet_stacked, packed_qnet, flash_attention, ssd_scan)
+    from repro_torch.kernels.stacked_adam.ops import stacked_adam
+
+    kernels = (fused_qnet, packed_qnet_stacked, packed_qnet, flash_attention,
+               ssd_scan, stacked_adam)
     cfg = get_config(LM_ARCH)
     if not cfg.remat or cfg.use_pallas:
         fail(f"lm_train: {LM_ARCH} should train with remat on and use_pallas off")
@@ -2721,15 +2961,23 @@ def main() -> None:
     phase_build()
     rows = phase_kernels(peak)
     stacked_rows = phase_stacked_kernel(peak)
+    adam_rows = phase_stacked_adam(peak)
     launches = phase_serve()
     for r in rows:
         r["launches"] = launches
+    from repro_torch.kernels.stacked_adam.ops import stacked_adam
+    stacked_adam.launches = 0
     launches = phase_train()
     for r in stacked_rows:
         r["launches"] = launches
+    for r in adam_rows:
+        r["launches"] = stacked_adam.launches
+    stacked_adam.launches = 0
     launches = phase_mesh(card)
     for r in stacked_rows:
         r["launches_mesh"] = launches
+    for r in adam_rows:
+        r["launches_mesh"] = stacked_adam.launches
     rl, (tr, svc, cache_dir) = phase_train_rl()
     for r in rows:
         r["launches_greedy_eval"] = rl["greedy"]
@@ -2744,7 +2992,7 @@ def main() -> None:
     for r in stacked_rows:
         r["launches_verify"] = pipe["packed_qnet_stacked"]
         r["launches_quickstart"] = pipe["quickstart_packed"]
-    rows += stacked_rows
+    rows += stacked_rows + adam_rows
     rows += phase_packed_kernel(peak)
     lm_rows, path_ms = phase_lm_kernels(peak)
     launches = phase_lm(path_ms, card)

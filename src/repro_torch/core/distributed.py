@@ -29,10 +29,15 @@ are gathered read-only copies on the mesh's first device.
 Both averages are ``_fleet_mean``: every shard's rows gathered onto one
 device, dead rows left out, summed in worker order from +0 and divided by
 the live count, as the reference's ``fleet_mean`` (``all_gather`` + one
-full-axis reduction) is.  The reduction order never depends on nd, so a
-run at nd = 2 or 4 is bit-identical to nd = 1.  Per-worker updates run
-serially, one Python loop over each shard's resident workers with autograd
-on one worker's slice at a time, as the reference's ``lax.scan`` does.
+full-axis reduction) is.  The reduction order never depends on nd.  A
+shard's workers take their update together, in runs of rows sized from
+the shapes (``_chunk_rows``): one batched double-DQN gradient over the
+run's stacked parameters and batches, then one fused Adam step
+(``stacked_adam``) of the run's rows, every worker on its own parameters,
+batch and step.  nd changes how many rows a run holds, so a run at nd = 2
+or 4 is bit-identical to nd = 1 where a batched product gives a row the
+same bits whatever the run's length (``_MIN_RUN``): checked on the CPU,
+and on an H100 at the paper's widths and batch.
 
 Acting is host-driven through ``RolloutEngine``: every environment step is
 one Q dispatch over every worker's candidates and one property batch.  A
@@ -54,8 +59,11 @@ host-densified f32 batches, ``"packed"`` ships u8 planes and densifies on
 each shard's device (``packed_batch.densify_batch``), and
 ``"packed_pipelined"`` draws update k+1's packed batch on a sampler thread
 while update k runs.  All three give the same batches, so the same losses
-and parameters.  The learner's products are ``torch.matmul`` under
-autograd; the reference leaves them to XLA and has no kernel there.
+and parameters.  The learner's products are batched matmuls under
+``torch.func.vmap`` over ``dqn_loss`` (f32), differentiated by autograd;
+the reference leaves them to XLA and has no kernel there.  Adam is the
+hand-written CUDA ``stacked_adam``, ``optim/adam.py``'s formulas over the
+stacked leaves.
 
 ``state_dict`` / ``load_state_dict`` gather the shards into the
 reference's checkpoint layout (``[W_pad, ...]`` leaves) and scatter them
@@ -74,6 +82,7 @@ from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
+from torch.func import vmap
 
 from repro_torch.chem.chemcache import ChemCache
 from repro_torch.chem.molecule import Molecule
@@ -92,10 +101,12 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_qnet.ops import fused_qnet
 from repro_torch.kernels.packed_qnet.ops import (dense_qnet_stacked,
                                                  packed_qnet_stacked)
+from repro_torch.kernels.stacked_adam import build as stacked_adam_build
+from repro_torch.kernels.stacked_adam.ops import stacked_adam
 from repro_torch.data.pipeline import shard_batch
 from repro_torch.launch.mesh import (HostMesh, make_host_mesh,
                                      padded_worker_count, shard_slices)
-from repro_torch.optim.adam import OptState, adam, apply_updates
+from repro_torch.optim.adam import OptState
 
 ROLLOUT_MODES = ("fleet", "fleet_sharded", "fleet_pipelined", "per_worker")
 _FLEET_MODES = ("fleet", "fleet_sharded", "fleet_pipelined")
@@ -112,6 +123,22 @@ REPLAY_MODES = ("uniform", "prioritized")
 #                   fetch is the one synchronisation point
 #   "dense"         [W, C, STATE_DIM] f32 rows, the correctness reference
 ACTING_MODES = ("packed", "packed_async", "dense")
+# What one stacked learner step may hold in temporaries: the widest layer's
+# output over its rows' next states, twice while its bias and ReLU run, or
+# its rows' gradients, whichever is larger.  At the paper's shapes (B 32 x
+# C 64 next states, width 1024: 16.8 MB a worker) that is 128 workers, far
+# under the densified batch's own transient.
+_CHUNK_BYTES = 2 << 30
+# Rows a stacked learner step computes at least.  BLAS takes a batched
+# product of fewer matrices down other paths (split-K on cuBLAS, one
+# threaded product on the CPU) whose sums run in other orders, so a shorter
+# run is padded with copies of its rows: a worker's bits must not depend on
+# how many rows share its step (one worker a shard at nd = 4 against four
+# at nd = 1).  On an H100 at the paper's widths and B 32 x C 64, runs of
+# every length from 4 to 127 rows agree with a run of 128 bit for bit
+# (``chip_smoke.py``'s mesh phase); on the CPU runs of 2 or more.  Other
+# widths and batches on the card are not checked.
+_MIN_RUN = 4
 
 
 @dataclass(frozen=True)
@@ -155,7 +182,7 @@ class TrainerConfig:
 def _spanned(name: str):
     """Method decorator: each call is one span ``name`` of the trainer's
     recorder; the method's frame, and what it alone holds (a round's batch,
-    a worker's autograd graph), is freed inside the span."""
+    a run's autograd graph), is freed inside the span."""
     def wrap(fn):
         @functools.wraps(fn)
         def call(self, *args, **kwargs):
@@ -168,6 +195,30 @@ def _spanned(name: str):
 def _worker_layers(layers: Layers, w: int) -> Layers:
     """Worker ``w``'s ``[(w [in, out], b [out])]`` views of stacked layers."""
     return [(wt[w], bt[w]) for wt, bt in layers]
+
+
+def _runs(n: int, cap: int) -> list[slice]:
+    """``range(n)`` cut into the fewest runs of at most ``cap`` rows, their
+    lengths as even as possible."""
+    k = -(-n // cap)
+    return [slice(n * i // k, n * (i + 1) // k) for i in range(k)]
+
+
+def _loss_grad(leaves: list[torch.Tensor], target: list[torch.Tensor],
+               batch: dict[str, torch.Tensor], discount: float):
+    """Each row's ``dqn_loss`` on its own parameters, target and batch
+    (stacked ``[n, ...]`` leaves and ``[n, B, ...]`` batch): its gradients
+    (``[n, ...]`` a leaf), its loss ``[n]`` and |TD| ``[n, B]``.  The
+    per-worker formula runs under ``vmap``, so every product is one
+    batched matmul over the rows; a row's loss reads only its own rows, so
+    the gradient of the summed losses is each row's own.  (``torch.func``'s
+    ``grad`` would do the same, but its first call imports ``torch._dynamo``:
+    3 s of set-up.)"""
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    loss, td = vmap(lambda l, t, b: dqn_loss(unflat(l), unflat(t), b, discount))(
+        leaves, target, batch)
+    grads = torch.autograd.grad(loss.sum(), leaves)
+    return list(grads), loss.detach(), td
 
 
 def _rows_of(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -495,7 +546,6 @@ class DistributedTrainer:
         if network is None:
             network = QNetwork(generator=torch.Generator().manual_seed(cfg.seed),
                                device="cpu")
-        self.opt = adam(cfg.dqn.lr, clip_norm=cfg.dqn.grad_clip)
         self._shards: list[_Shard] = []
         for dev, rows in zip(mesh.devices,
                              shard_slices(self.n_padded_workers, mesh)):
@@ -507,6 +557,8 @@ class DistributedTrainer:
                 OptState(step=torch.zeros(n, dtype=torch.int32, device=dev),
                          mu=[torch.zeros_like(t) for t in flat(params)],
                          nu=[torch.zeros_like(t) for t in flat(params)])))
+        if self.device.type == "cuda":   # nvcc runs while the replays fill
+            stacked_adam_build.nvcc_build().start()
 
         self.epsilon = cfg.dqn.epsilon_initial
         self.episode = 0
@@ -606,34 +658,48 @@ class DistributedTrainer:
             sh.params = unflat(p)
             sh.opt = OptState(step=sh.opt.step, mu=m[:n], nu=m[n:])
 
-    @_spanned("trainer.worker_grad")
-    def _worker_loss(self, sh: _Shard, i: int, batch: dict[str, torch.Tensor]):
-        """The loss, |TD| and gradients of row ``i`` of shard ``sh`` on its
-        own parameters and batch."""
-        leaves = [t[i].detach().requires_grad_(True) for t in flat(sh.params)]
-        loss, td = dqn_loss(unflat(leaves), _worker_layers(sh.target, i),
-                            {k: v[i] for k, v in batch.items()},
-                            self.cfg.dqn.discount)
-        grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), td, list(grads)
+    def _chunk_rows(self, batch: dict[str, torch.Tensor]) -> int:
+        """Rows of one stacked step: as many as keep its temporaries under
+        ``_CHUNK_BYTES`` (see there), at least one."""
+        nxt = batch["next_fps"]
+        layers = self._shards[0].params
+        width = max(w.shape[-1] for w, _ in layers)
+        n_params = sum(t[0].numel() for t in flat(layers))
+        per_row = nxt.element_size() * max(
+            2 * (nxt[0].numel() // nxt.shape[-1]) * width, n_params)
+        return max(1, _CHUNK_BYTES // per_row)
 
-    @_spanned("trainer.worker_adam")
-    @torch.no_grad()
-    def _apply_worker(self, sh: _Shard, i: int,
+    @_spanned("trainer.stacked_grad")
+    def _stacked_grad(self, sh: _Shard, rows: slice,
+                      batch: dict[str, torch.Tensor]):
+        """The losses ``[n]``, |TD| ``[n, B]`` and gradients (``[n, ...]`` a
+        leaf) of shard ``sh``'s ``rows``, each on its own parameters and
+        batch, in one batched step (``_loss_grad``); a run shorter than
+        ``_MIN_RUN`` is computed with copies of its rows after it."""
+        self._trace.count("trainer.stacked_chunks")
+        n = rows.stop - rows.start
+        if n >= _MIN_RUN:
+            take = lambda t: t[rows]
+        else:
+            pad = torch.arange(_MIN_RUN, device=sh.device) % n + rows.start
+            take = lambda t: t[pad]
+        grads, loss, td = _loss_grad(
+            [take(t) for t in flat(sh.params)],
+            [take(t) for t in flat(sh.target)],
+            {k: take(v) for k, v in batch.items()}, self.cfg.dqn.discount)
+        return loss[:n], td[:n], [g[:n] for g in grads]
+
+    @_spanned("trainer.stacked_adam")
+    def _stacked_adam(self, sh: _Shard, rows: slice,
                       grads: list[torch.Tensor]) -> None:
-        """One Adam step of row ``i`` of shard ``sh`` on ``grads``, written
-        back into the shard's stacked parameters and optimizer state."""
-        params = flat(sh.params)
-        st = sh.opt
-        p = [t[i] for t in params]
-        updates, s2 = self.opt.update(
-            grads, OptState(step=st.step[i], mu=[m[i] for m in st.mu],
-                            nu=[v[i] for v in st.nu]), p)
-        for dst, new in zip(params, apply_updates(p, updates)):
-            dst[i].copy_(new)
-        for dst, new in zip(st.mu + st.nu, s2.mu + s2.nu):
-            dst[i].copy_(new)
-        st.step[i] = s2.step
+        """One Adam step of shard ``sh``'s ``rows`` on ``grads``
+        (``[n, ...]`` a leaf, or one row expanded), written in place into
+        the shard's stacked parameters, moments and steps."""
+        cut = lambda ts: [t[rows] for t in ts]
+        dqn = self.cfg.dqn
+        stacked_adam(cut(flat(sh.params)), grads, cut(sh.opt.mu),
+                     cut(sh.opt.nu), sh.opt.step[rows], lr=dqn.lr,
+                     clip=dqn.grad_clip)
 
     @_spanned("trainer.update")
     def _update_once(self, batches: list[dict[str, torch.Tensor]], packed: bool):
@@ -641,41 +707,51 @@ class DistributedTrainer:
         dict per shard (``_ship``); returns the per-worker ``(loss [W_pad],
         |td| [W_pad, B])`` on the mesh's first device, zero on dead rows.
 
-        Each shard runs its resident workers serially.  A dead worker
-        computes nothing: its gradient is zero, but it still takes its Adam
-        step (episode mode) or the fleet's mean update (step mode), as the
-        reference's masked update bodies do."""
+        Each shard's live rows take their step in runs of ``_chunk_rows``:
+        one batched gradient a run, then (episode mode) one Adam step of
+        its rows.  A dead worker computes nothing: its gradient is zero,
+        but it still takes its Adam step (episode mode) or the fleet's mean
+        update (step mode), as the reference's masked update bodies do.
+        Step mode means the live rows' gradients in worker order and steps
+        every row on that mean."""
         if packed:
             with self._trace.span("trainer.densify"):
                 batches = [densify_batch(b) for b in batches]
         step_mode = self.cfg.sync_mode == "step"
+        cap = self._chunk_rows(batches[0])
         losses, tds, grads = [], [], []
         for sh, batch in zip(self._shards, batches):
-            for i, w in enumerate(range(sh.rows.start, sh.rows.stop)):
-                if w >= self.n_live_workers:
-                    losses.append(torch.zeros((), device=self.device))
-                    tds.append(torch.zeros(batch["rewards"].shape[1],
-                                           device=self.device))
-                    if not step_mode:
-                        self._apply_worker(sh, i, [torch.zeros_like(t[i])
-                                                   for t in flat(sh.params)])
-                    continue
-                loss, td, g = self._worker_loss(sh, i, batch)
+            n = sh.rows.stop - sh.rows.start
+            live = min(n, max(0, self.n_live_workers - sh.rows.start))
+            for rows in _runs(live, cap):
+                loss, td, g = self._stacked_grad(sh, rows, batch)
                 losses.append(loss.to(self.device))
                 tds.append(td.to(self.device))
                 if step_mode:
                     grads.append(g)
                 else:
-                    self._apply_worker(sh, i, g)
+                    self._stacked_adam(sh, rows, g)
+            if live < n:
+                losses.append(torch.zeros(n - live, device=self.device))
+                tds.append(torch.zeros(n - live, batch["rewards"].shape[1],
+                                       device=self.device))
+                if not step_mode:
+                    dead = slice(live, n)
+                    self._stacked_adam(sh, dead, [
+                        torch.zeros_like(t[0]).expand_as(t[dead])
+                        for t in flat(sh.params)])
+        del batches, batch
         if step_mode:
-            gmean = [self._mean_rows(gs) for gs in zip(*grads)]
+            gmean = [self._mean_rows(r for g in gs for r in g)
+                     for gs in zip(*grads)]
+            del grads
             for sh in self._shards:
-                g = [t.to(sh.device) for t in gmean]
-                for i in range(sh.rows.stop - sh.rows.start):
-                    self._apply_worker(sh, i, g)
+                n = sh.rows.stop - sh.rows.start
+                self._stacked_adam(sh, slice(0, n), [
+                    m.to(sh.device).expand((n,) + m.shape) for m in gmean])
         self.n_updates += 1
         self._trace.count("trainer.worker_updates", self.n_live_workers)
-        return torch.stack(losses), torch.stack(tds)
+        return torch.cat(losses), torch.cat(tds)
 
     # ------------------------------------------------------------ #
     # training
@@ -792,11 +868,14 @@ class DistributedTrainer:
         Spans: ``trainer.updates`` (``run_updates``) holds
         ``trainer.sample``, ``trainer.ship``, ``trainer.update`` and
         ``trainer.loss_read``; ``trainer.update`` (``_update_once``) holds
-        ``trainer.densify``, ``trainer.worker_grad`` (one live worker's
-        loss and gradients, enqueued) and ``trainer.worker_adam`` (one
-        worker's Adam step); ``trainer.rollout`` and ``trainer.sync`` are
-        ``train_episode``'s.  Counter ``trainer.worker_updates``: live
-        worker updates."""
+        ``trainer.densify``, ``trainer.stacked_grad`` (one run of live
+        rows: its batched loss and gradients, enqueued) and
+        ``trainer.stacked_adam`` (one Adam launch: a run's rows in episode
+        mode, a shard's dead rows, or a shard's rows on the fleet's mean
+        in step mode); ``trainer.rollout`` and ``trainer.sync`` are
+        ``train_episode``'s.  Counters ``trainer.worker_updates``: live
+        worker updates; ``trainer.stacked_chunks``: runs of live rows, so
+        rows a stacked step = worker updates / stacked chunks."""
         return self._trace.snapshot()
 
     def _select_action(self, q: np.ndarray, w: int) -> int:

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), one per Pallas kernel of
-``repro.kernels``.
+``repro.kernels``, and ``stacked_adam``, the learner's fused Adam over its
+stacked workers (the reference leaves that to XLA).
 
 Each kernel ships as ``<name>/{csrc/<name>.cu, build.py, ops.py, ref.py}``:
 the CUDA source; its ``nvcc`` build into ``build/repro_torch/`` at the

@@ -18,8 +18,9 @@ this module repeats the reference's formulas instead:
   added after ``sqrt(v_hat)``.
 
 ``step`` is an int32 tensor; the trainer keeps one per worker, stacked
-``[W]`` like the reference's ``vmap(opt.init)``, and hands each worker's
-update its own slice.  Nothing here records autograd history.
+``[W]`` like the reference's ``vmap(opt.init)``, and steps its stacked
+workers with ``kernels/stacked_adam``, these formulas in this order of
+operations.  Nothing here records autograd history.
 """
 
 from __future__ import annotations

@@ -4,8 +4,9 @@ worker-update counter it gives ``DistributedTrainer``, on the CPU.
 The recorder sums host seconds and calls per span and counts per counter;
 only while a torch profiler records is a span also a ``record_function``
 range.  The trainer's spans nest as ``trace_stats`` documents, count one
-call per round, worker or episode, and leave the private methods that an
-instance wrap replaces (as the benchmark's does) called through ``self``.
+call per round, run of stacked rows or episode, and leave the private
+methods that an instance wrap replaces (as the benchmark's does) called
+through ``self``.
 """
 
 import sys
@@ -179,18 +180,22 @@ def test_run_updates_spans_and_worker_update_count(learner, filled):
     calls = {k: v - before["calls"].get(k, 0) for k, v in after["calls"].items()}
     s = {k: v - before["seconds"].get(k, 0.0)
          for k, v in after["seconds"].items()}
+    counts = {k: v - before["counts"].get(k, 0)
+              for k, v in after["counts"].items()}
     W = tr.n_live_workers
-    assert after["counts"]["trainer.worker_updates"] \
-        - before["counts"].get("trainer.worker_updates", 0) == 2 * W
-    assert calls["trainer.worker_grad"] == 2 * W
-    assert calls["trainer.worker_adam"] == 2 * W
+    assert counts["trainer.worker_updates"] == 2 * W
+    # the narrow fleet is one run of rows a step: W rows a stacked step
+    assert counts["trainer.stacked_chunks"] == 2
+    assert counts["trainer.worker_updates"] // counts["trainer.stacked_chunks"] == W
+    assert calls["trainer.stacked_grad"] == 2
+    assert calls["trainer.stacked_adam"] == 2
     assert calls["trainer.updates"] == 1
     for name in ("trainer.sample", "trainer.ship", "trainer.update",
                  "trainer.loss_read"):
         assert calls[name] == 2, name
     assert calls.get("trainer.densify", 0) == (0 if learner == "dense" else 2)
-    children = (s.get("trainer.densify", 0.0) + s["trainer.worker_grad"]
-                + s["trainer.worker_adam"])
+    children = (s.get("trainer.densify", 0.0) + s["trainer.stacked_grad"]
+                + s["trainer.stacked_adam"])
     assert s["trainer.update"] >= children
     if learner != "packed_pipelined":   # its sampling runs on another thread
         assert s["trainer.updates"] >= (
@@ -238,8 +243,8 @@ def test_trainer_spans_nest_under_the_profiler(filled):
     for e in prof.function_events:
         if e.name.startswith("trainer.") and e.cpu_parent is not None:
             parent.setdefault(e.name, set()).add(e.cpu_parent.name)
-    assert parent["trainer.worker_grad"] == {"trainer.update"}
-    assert parent["trainer.worker_adam"] == {"trainer.update"}
+    assert parent["trainer.stacked_grad"] == {"trainer.update"}
+    assert parent["trainer.stacked_adam"] == {"trainer.update"}
     assert parent["trainer.densify"] == {"trainer.update"}
     for name in ("trainer.sample", "trainer.ship", "trainer.update",
                  "trainer.loss_read"):
