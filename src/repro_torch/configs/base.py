@@ -36,6 +36,32 @@ class MoEConfig:
     capacity_factor: float = 1.0
     group_size: int = 256           # GShard dispatch group size (tokens)
     aux_loss_weight: float = 0.01
+    # port-only fields, read by the mla_moe family (DeepSeek-V3's router
+    # and a dropless expert layer); the defaults leave the moe family as it is
+    routed_scale: float = 1.0       # routed_scaling_factor
+    n_shared: int = 0               # shared experts, one SwiGLU of n_shared x d_ff
+    first_dense: int = 0            # leading dense layers (first_k_dense_replace)
+    dense_d_ff: int = 0             # their SwiGLU width
+    bias_rate: float = 0.0          # gamma: the selection bias's step per train step
+    seq_aux_weight: float = 0.0     # alpha: the sequence-wise balance loss
+    expert_share: tuple[int, int] | None = None   # (first, count) of the router's
+                                    # experts held here; None: all of them
+
+    @property
+    def local_experts(self) -> tuple[int, int]:
+        """(first, count) of the experts this device computes."""
+        return self.expert_share or (0, self.n_experts)
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2, arXiv:2405.04434 §2.1),
+    with no query compression (``q_lora_rank`` null)."""
+    kv_lora_rank: int               # the latent's width
+    qk_nope_head_dim: int           # per-head q.k part without position
+    qk_rope_head_dim: int           # per-head RoPE part (the key's is shared)
+    v_head_dim: int
+    kv_norm_eps: float = 1e-6       # the latent's RMSNorm
 
 
 @dataclass(frozen=True)
@@ -64,6 +90,7 @@ class VLMConfig:
 class ArchConfig:
     name: str
     family: str                     # dense | moe | ssm | hybrid | encdec | vlm
+                                    # | mla_moe (port-only)
     n_layers: int
     d_model: int
     n_heads: int
@@ -75,6 +102,7 @@ class ArchConfig:
     ssm: SSMConfig | None = None
     encdec: EncDecConfig | None = None
     vlm: VLMConfig | None = None
+    mla: MLAConfig | None = None    # port-only: the mla_moe family's attention
     shared_attn_every: int = 0      # hybrid: shared attn period (0 = none)
     attn_window: int | None = None  # sliding-window size (None = full)
     rope_theta: float = 1e6
@@ -117,7 +145,15 @@ class ArchConfig:
         )
         if self.moe is not None:
             changes["moe"] = replace(self.moe, n_experts=min(self.moe.n_experts, 4),
-                                     top_k=min(self.moe.top_k, 2), group_size=32)
+                                     top_k=min(self.moe.top_k, 2), group_size=32,
+                                     dense_d_ff=min(self.moe.dense_d_ff, 512),
+                                     expert_share=None)
+        if self.mla is not None:
+            m = self.mla
+            changes["mla"] = replace(m, kv_lora_rank=min(m.kv_lora_rank, 32),
+                                     qk_nope_head_dim=min(m.qk_nope_head_dim, 16),
+                                     qk_rope_head_dim=min(m.qk_rope_head_dim, 8),
+                                     v_head_dim=min(m.v_head_dim, 16))
         if self.ssm is not None:
             changes["ssm"] = replace(self.ssm, state_dim=min(self.ssm.state_dim, 16),
                                      head_dim=16, chunk=16)

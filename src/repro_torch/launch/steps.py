@@ -15,6 +15,14 @@ does, and keeps the moments as lists in that order.  Gradients come from
 ``torch.autograd.grad`` and keep each leaf's type (bf16 leaves get bf16
 gradients, as in JAX).
 
+The mla_moe family's step also moves each MoE layer's selection bias
+after Adam, outside autograd, from the loads its forward counted
+(``models.moe.update_bias``, DeepSeek-V3 §2.1.2); with a ``recorder``
+(``core.spans.SpanRecorder``) its forward's parts are spanned (``lm.mla``,
+``lm.moe.route`` / ``.experts`` / ``.combine`` / ``.shared``), the step's
+``lm.backward`` and ``lm.adam``, and counted (``lm.steps``, ``lm.tokens``,
+``lm.moe.local_rows``, ``lm.moe.max_local_rows``).
+
 The qnet family (``damoldqn``) builds the double-DQN step instead, over the
 parameter tree ``{"layers": [{"w", "b"}, ...]}``: ``make_train_step`` ->
 f(params, target_params, opt_state, batch) -> (params, opt_state, loss),
@@ -32,6 +40,7 @@ import torch
 from repro_torch.checkpoint.checkpoint import tree_leaves
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as M
+from repro_torch.models.moe import StepStats, update_bias
 from repro_torch.optim.adam import Optimizer, adam, apply_updates
 
 
@@ -82,15 +91,18 @@ def _make_qnet_train_step(opt: Optimizer):
     return qnet_train_step
 
 
-def loss_and_grads(params: dict, cfg: ArchConfig,
-                   batch: dict) -> tuple[torch.Tensor, list[torch.Tensor]]:
+def loss_and_grads(params: dict, cfg: ArchConfig, batch: dict, *,
+                   stats: StepStats | None = None
+                   ) -> tuple[torch.Tensor, list[torch.Tensor]]:
     """``M.loss_fn`` and its gradient, one tensor per leaf in
     ``tree_leaves`` order (``jax.value_and_grad(loss_fn)``).  A leaf the
     loss does not reach gets zeros, as in JAX."""
     leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    stats = stats or StepStats()
     with torch.enable_grad():
-        loss = M.loss_fn(with_leaves(params, leaves), cfg, batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        loss = M.loss_fn(with_leaves(params, leaves), cfg, batch, stats=stats)
+        with stats.span("lm.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
     return loss.detach(), grads
 
@@ -101,10 +113,21 @@ def _split(batch: dict, mb: int) -> list[dict]:
              for k, v in batch.items()} for i in range(mb)]
 
 
+def _moved_bias(params: dict, cfg: ArchConfig, loads: list[torch.Tensor]) -> dict:
+    """``params`` with ``blocks.moe.bias`` [L, E] moved by the step's loads
+    (one ``[E]`` per MoE layer, summed over microbatches)."""
+    moe = params["blocks"]["moe"]
+    bias = update_bias(moe["bias"], torch.stack(loads), cfg.moe.bias_rate)
+    return {**params, "blocks": {**params["blocks"], "moe": {**moe, "bias": bias}}}
+
+
 def make_train_step(cfg: ArchConfig, optimizer: Optimizer | None = None,
-                    microbatches: int = 1):
-    """-> ``(train_step, opt)``; ``train_step(params, opt_state, batch) ->
-    (params, opt_state, loss)`` with ``opt_state = opt.init(params)``.
+                    microbatches: int = 1, recorder=None):
+    """-> ``(train_step, opt)``; ``train_step(params, opt_state, batch,
+    stats=None) -> (params, opt_state, loss)`` with ``opt_state =
+    opt.init(params)``.  ``stats`` (a ``models.moe.StepStats``, mla_moe
+    only) receives the step's router loads, and its choices if it keeps
+    them; its recorder is ``recorder``.
 
     With ``microbatches > 1`` the batch splits into that many microbatches,
     one backward each; the gradients accumulate in each parameter's type,
@@ -121,22 +144,38 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer | None = None,
     if cfg.family == "qnet":
         return _make_qnet_train_step(base), opt
     mb = max(microbatches, 1)
+    moving_bias = cfg.family == "mla_moe" and cfg.moe.bias_rate > 0
 
-    def train_step(params, opt_state, batch):
+    def train_step(params, opt_state, batch, stats: StepStats | None = None):
         leaves = tree_leaves(params)
+        if stats is None:
+            stats = StepStats(recorder)
+        elif stats.rec is None:
+            stats.rec = recorder
+        loads = None
         if mb == 1:
-            loss, grads = loss_and_grads(params, cfg, batch)
+            loss, grads = loss_and_grads(params, cfg, batch, stats=stats)
+            loads = [stats.loads[i] for i in sorted(stats.loads)]
         else:
             loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
             grads = [torch.zeros_like(p) for p in leaves]
             for mbatch in _split(batch, mb):
-                part, g = loss_and_grads(params, cfg, mbatch)
+                part, g = loss_and_grads(params, cfg, mbatch, stats=stats)
                 loss = loss + part
                 grads = [(a + b).to(a.dtype) for a, b in zip(grads, g)]
+                now = [stats.loads[i] for i in sorted(stats.loads)]
+                loads = now if loads is None else [a + b for a, b in zip(loads, now)]
             grads = [(g / mb).to(p.dtype) for g, p in zip(grads, leaves)]
             loss = loss / mb
-        updates, opt_state = base.update(grads, opt_state, leaves)
-        return with_leaves(params, apply_updates(leaves, updates)), opt_state, loss
+        with stats.span("lm.adam"):
+            updates, opt_state = base.update(grads, opt_state, leaves)
+            del grads
+            params = with_leaves(params, apply_updates(leaves, updates))
+        if moving_bias:
+            params = _moved_bias(params, cfg, loads)
+        stats.count("lm.steps", 1)
+        stats.count("lm.tokens", int(torch.as_tensor(batch["tokens"]).numel()))
+        return params, opt_state, loss
 
     return train_step, opt
 

@@ -7,7 +7,10 @@ mamba2 blocks + one shared attention block applied every
 ``shared_attn_every`` layers), encdec (whisper: stub frame embeddings ->
 bidirectional encoder -> decoder with cross-attention), vlm (paligemma:
 stub patch embeddings -> projector -> prefix-LM decoder over the image
-prefix and the text).  The qnet family (``damoldqn``, the paper's DQN) has
+prefix and the text), and, port-only, mla_moe (moonlight-16b-a3b: latent
+attention, ``models/mla.py``, in every layer; leading dense SwiGLU layers,
+then DeepSeek-V3 MoE layers, ``models/moe.py``'s dropless path over the
+experts the device holds).  The qnet family (``damoldqn``, the paper's DQN) has
 its parameter tree here, ``{"layers": [{"w", "b"}, ...]}`` as the
 reference's ``QNetwork.init`` builds it; its steps are ``launch/steps.py``'s
 and its model lives in ``repro_torch.core``.
@@ -59,11 +62,12 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as Lyr
+from repro_torch.models import mla as Mla
 from repro_torch.models import moe as Moe
 from repro_torch.models import ssm as Ssm
 
 PyTree = Any
-FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec", "mla_moe")
 
 
 def _require_family(cfg: ArchConfig) -> None:
@@ -119,6 +123,23 @@ def _hybrid_shared_init(gen, cfg: ArchConfig, dtype, *, device=None) -> dict:
     }
 
 
+def _mla_block_init(gen, cfg: ArchConfig, dtype, *, moe: bool, lead=(),
+                    device=None) -> dict:
+    """An mla_moe layer: MLA, then DeepSeek-V3's MoE or (a leading layer) a
+    SwiGLU of ``moe.dense_d_ff``.  Norm scales are f32 (with the router and
+    its bias): a bf16 scale of 1.0 does not move under updates of ~1e-4."""
+    kw = dict(lead=lead, device=device)
+    p = {"norm1": _ones(lead, cfg.d_model, torch.float32, device),
+         "attn": Mla.mla_params_init(gen, cfg, dtype, **kw),
+         "norm2": _ones(lead, cfg.d_model, torch.float32, device)}
+    if moe:
+        p["moe"] = Moe.dsmoe_params_init(gen, cfg, dtype, **kw)
+    else:
+        p["mlp"] = Lyr.mlp_params_init(gen, cfg.d_model, cfg.moe.dense_d_ff,
+                                       "swiglu", dtype, **kw)
+    return p
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, *,
                 device: str | torch.device | None = None) -> PyTree:
     """Random parameters in the reference's tree layout and types, drawn on
@@ -143,12 +164,20 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
     kw = dict(device=device)
     params: dict = {
         "embed": Lyr.dense_init(gen, (cfg.vocab, cfg.d_model), dtype, 0.02, **kw),
-        "final_norm": _ones((), cfg.d_model, dtype, device),
+        "final_norm": _ones((), cfg.d_model,
+                            torch.float32 if cfg.family == "mla_moe" else dtype, device),
     }
     if not cfg.tied_embeddings:
         params["unembed"] = Lyr.dense_init(gen, (cfg.d_model, cfg.vocab), dtype, **kw)
     lead = (cfg.n_layers,)
-    if cfg.family in ("dense", "moe", "vlm"):
+    if cfg.family == "mla_moe":
+        n_dense = cfg.moe.first_dense
+        if n_dense:
+            params["dense_blocks"] = _mla_block_init(gen, cfg, dtype, moe=False,
+                                                     lead=(n_dense,), **kw)
+        params["blocks"] = _mla_block_init(gen, cfg, dtype, moe=True,
+                                           lead=(cfg.n_layers - n_dense,), **kw)
+    elif cfg.family in ("dense", "moe", "vlm"):
         params["blocks"] = _block_init(gen, cfg, dtype, lead=lead, **kw)
     elif cfg.family == "encdec":
         params["blocks"] = _block_init(gen, cfg, dtype, cross=True, lead=lead, **kw)
@@ -208,13 +237,17 @@ def count_params(cfg: ArchConfig) -> int:
 
 
 def active_params(cfg: ArchConfig) -> int:
-    """Parameters touched per token (MoE: top_k of E experts)."""
+    """Parameters touched per token (MoE: top_k of E experts; mla_moe: of
+    the held experts, the share a token reaches on average, K / E of them)."""
     total = count_params(cfg)
     if cfg.moe is None:
         return total
     # expert weights are [E, D, F] x3 per layer
     E, K = cfg.moe.n_experts, cfg.moe.top_k
-    expert_total = cfg.n_layers * 3 * cfg.d_model * cfg.d_ff * E
+    n_layers, held = cfg.n_layers, E
+    if cfg.family == "mla_moe":
+        n_layers, held = cfg.n_layers - cfg.moe.first_dense, cfg.moe.local_experts[1]
+    expert_total = n_layers * 3 * cfg.d_model * cfg.d_ff * held
     return total - expert_total + expert_total * K // E
 
 
@@ -292,6 +325,22 @@ def _dense_block_fwd(cfg: ArchConfig, p: dict, h: torch.Tensor, positions,
     return h, aux
 
 
+def _mla_block_fwd(cfg: ArchConfig, p: dict, h: torch.Tensor, positions,
+                   aux: torch.Tensor, *, layer: int = 0,
+                   stats: Moe.StepStats | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """An mla_moe layer; ``layer`` is the MoE layer's index (its key in
+    ``stats``)."""
+    stats = stats or Moe.StepStats()
+    x = Lyr.rms_norm(h, p["norm1"], cfg.norm_eps)
+    with stats.span("lm.mla"):
+        h = h + Mla.mla_forward(p["attn"], x, positions, cfg)
+    x = Lyr.rms_norm(h, p["norm2"], cfg.norm_eps)
+    if "moe" in p:
+        y, a = Moe.dsmoe_forward(p["moe"], x, cfg, stats=stats, layer=layer)
+        return h + y, aux + a
+    return h + Lyr.mlp_forward(p["mlp"], x, "swiglu"), aux
+
+
 def _dec_block_fwd(cfg: ArchConfig, p: dict, h: torch.Tensor, positions,
                    memory: torch.Tensor) -> torch.Tensor:
     """An encdec decoder block: causal self-attention (the kernel with
@@ -346,13 +395,14 @@ def _batch_input(batch: dict, key: str, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(batch[key]).to(device=like.device, dtype=like.dtype)
 
 
-def forward_hidden(params: PyTree, cfg: ArchConfig,
-                   batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+def forward_hidden(params: PyTree, cfg: ArchConfig, batch: dict, *,
+                   stats: Moe.StepStats | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Final-norm hidden states [B,S,D] (text positions only for the vlm)
     and the aux loss.  ``batch["tokens"]`` is a [B, S] int tensor or array
     (with ``batch["patches"]`` [B, n_patches, vision_dim] for the vlm and
     ``batch["frames"]`` [B, T, D] for encdec); all are moved to the
-    parameters' device."""
+    parameters' device.  The mla_moe family leaves its routers' loads (and
+    spans) in ``stats``; the other families ignore it."""
     _require_family(cfg)
     if cfg.family == "encdec":
         return _forward_encdec_hidden(params, cfg, batch)
@@ -367,11 +417,20 @@ def forward_hidden(params: PyTree, cfg: ArchConfig,
     positions = _positions(B, S, h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
-    layers = _unstack(params["blocks"], cfg.n_layers)
+    layers = [] if cfg.family == "mla_moe" else _unstack(params["blocks"], cfg.n_layers)
     # per-block remat of the stacked layers, as the reference's _stack_scan;
     # the hybrid's shared block sits outside the scan there and here
     block = Lyr.remat if cfg.remat else (lambda fn, *a: fn(*a))
-    if cfg.family in ("dense", "moe", "vlm"):
+    if cfg.family == "mla_moe":
+        if "dense_blocks" in params:
+            for lp in _unstack(params["dense_blocks"], cfg.moe.first_dense):
+                h, aux = block(partial(_mla_block_fwd, cfg, stats=stats),
+                               lp, h, positions, aux)
+        for i, lp in enumerate(_unstack(params["blocks"],
+                                        cfg.n_layers - cfg.moe.first_dense)):
+            h, aux = block(partial(_mla_block_fwd, cfg, layer=i, stats=stats),
+                           lp, h, positions, aux)
+    elif cfg.family in ("dense", "moe", "vlm"):
         fwd = partial(_dense_block_fwd, cfg, prefix_len=prefix_len)
         for lp in layers:
             h, aux = block(fwd, lp, h, positions, aux)
@@ -450,9 +509,11 @@ def _xent_chunk(params, cfg, h, labels, mask):
     return torch.sum((logz - ll) * mask)
 
 
-def loss_fn(params: PyTree, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    """Masked LM cross-entropy + the aux loss (the MoE load balance; 0 for
-    the other families).
+def loss_fn(params: PyTree, cfg: ArchConfig, batch: dict, *,
+            stats: Moe.StepStats | None = None) -> torch.Tensor:
+    """Masked LM cross-entropy + the aux loss (the MoE load balance, or
+    mla_moe's sequence-wise one; 0 for the other families).  ``stats``: see
+    ``forward_hidden``.
 
     ``batch`` holds ``tokens``, ``labels`` and ``mask`` ([B, S], arrays or
     tensors; moved to the parameters' device), and the vlm's ``patches`` or
@@ -460,7 +521,7 @@ def loss_fn(params: PyTree, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     512 above it, the unembed and softmax run in 512-token chunks, each
     checkpointed under grad, so the f32 logits working set is ``[B, 512,
     V]``; the chunks' sums add in sequence order, as the reference's scan."""
-    h, aux = forward_hidden(params, cfg, batch)
+    h, aux = forward_hidden(params, cfg, batch, stats=stats)
     labels = torch.as_tensor(batch["labels"], device=h.device).long()
     mask = torch.as_tensor(batch["mask"], device=h.device).float()
     S = labels.shape[1]
@@ -491,6 +552,7 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
     """Zero cache on ``device`` (default: the GPU), in the config's type;
     ``pos`` is a Python int."""
     _require_family(cfg)
+    _no_mla_decode(cfg)
     device = resolve_device(device)
     dtype = cfg.torch_dtype
     L, K, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -521,6 +583,13 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
         cache["shared_v"] = zeros(napps, batch, Sc, K, Dh)
     cache["pos"] = 0
     return cache
+
+
+def _no_mla_decode(cfg: ArchConfig) -> None:
+    if cfg.family == "mla_moe":
+        raise NotImplementedError(
+            "mla_moe decode needs the latent cache (the 512-wide latent and the "
+            "shared RoPE key per position), which the port does not have yet")
 
 
 def _decode_attn(cfg, p, x, pos: int, ck, cv, Sc: int, *, prefix_len: int = 0):
@@ -571,6 +640,7 @@ def serve_step(params: PyTree, cfg: ArchConfig, cache: PyTree,
     cache's tensors are updated in place; the returned dict shares them and
     has ``pos`` advanced by one."""
     _require_family(cfg)
+    _no_mla_decode(cfg)
     pos = int(cache["pos"])
     embed = params["embed"]
     tokens = torch.as_tensor(tokens, device=embed.device).long()
@@ -686,6 +756,10 @@ def param_pspecs(cfg: ArchConfig, tp: int = 16, model_axis: str = "model") -> Py
       * norms, scalars, the qnet's layers: replicated
     Every spec lists one entry per dim (the reference's ``P(...)`` may be
     shorter: its missing entries are ``None``)."""
+    if cfg.family == "mla_moe":
+        raise NotImplementedError(
+            "no sharding plan for the mla_moe family: its expert layer holds a "
+            "share of the router's experts (moe.expert_share) on each device")
     M = model_axis
 
     def attn_spec(name: str, shape) -> Spec:

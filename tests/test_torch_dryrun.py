@@ -28,6 +28,7 @@ import pytest
 import torch
 from jax.sharding import AbstractMesh, PartitionSpec
 
+from torch_config_fields import with_port_only_fields
 from repro.configs import INPUT_SHAPES as JAX_SHAPES
 from repro.configs import get_config as jax_get_config
 from repro.configs import list_archs as jax_list_archs
@@ -124,9 +125,10 @@ def _reference_dryrun_tables() -> dict:
 # damoldqn and the qnet steps
 # ------------------------------------------------------------------ #
 def test_damoldqn_config_equals_the_reference():
-    assert list_archs() == jax_list_archs()
+    assert set(jax_list_archs()) <= set(list_archs())
+    assert set(list_archs()) - set(jax_list_archs()) == {"moonlight-16b-a3b"}
     assert dataclasses.asdict(get_config("damoldqn")) == \
-        dataclasses.asdict(jax_get_config("damoldqn"))
+        with_port_only_fields(dataclasses.asdict(jax_get_config("damoldqn")))
 
 
 def _qnet_batches():

@@ -208,7 +208,7 @@ def test_port_has_the_families_slice():
             "from repro_torch.models.layers import cross_kv; "
             "from repro_torch.models import active_params; "
             "from repro_torch.configs import list_archs; "
-            "assert len(list_archs()) == 11, list_archs(); "
+            "assert len(list_archs()) == 12, list_archs(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad; print('clean')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
