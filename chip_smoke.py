@@ -23,9 +23,17 @@ Phases, each of which exits non-zero on failure:
              ``stacked_adam`` (the learner's fused Adam) that it equals its
              plain version bit for bit at odd leaf sizes, a gradient of row
              stride 0, no clip, and 512 workers x 2,693,825 parameters with
-             the clip biting on half the rows; time the kernel, the plain
-             version and a library yardstick with CUDA events beside the
-             card's bound for the same work.
+             the clip biting on half the rows; for ``leaf_adam`` (the LM
+             step's in-place Adam) that it equals its plain version (with
+             the kernel's f64 norm) bit for bit over mixed bf16 / f32 leaves
+             of odd sizes, the clip biting and idle, zero gradients, weight
+             decay, unaligned leaves and 150 leaves, ``optim/adam.py``'s
+             step where the clip is idle, and at moonlight.train8k's 2.78 B
+             leaves (a rerun bit-identical; the norm's gap to
+             ``global_norm``); time the kernel, the plain version and a
+             library yardstick (for ``leaf_adam``, ``optim/adam.py``'s
+             update + apply_updates) with CUDA events beside the card's
+             bound for the same work.
 4. serve   - the serving path: ``repro_torch.launch.serve_molopt`` on the
              GPU at full width (8 slots, 32 requests, deadlines, poisoned
              requests, a seeded FaultPlan).  Every request must end
@@ -178,7 +186,9 @@ Phases, each of which exits non-zero on failure:
              ``torch.profiler`` table of one step); the losses finite, every
              leaf's first moment finite and nonzero, every leaf changed but
              the bf16 norm scales of 1.0 (an update of lr = 1e-4 is below
-             half their ulp), and 0 launches of every kernel.  Then
+             half their ulp), 0 launches of every other kernel and one
+             ``leaf_adam`` launch a step (the step's Adam, in place; the
+             rerun and the check clone what the step consumes).  Then
              ``python -m repro_torch.launch.train --mode lm`` at its defaults
              (stablelm-1.6b at full width, bf16, B 8, S 64, 50 steps) must
              exit 0 with a finite final loss below its first, and ``python
@@ -381,6 +391,13 @@ DRYRUN_RUNS = (["--arch", "damoldqn", "--both-meshes"],
                ["--arch", "zamba2-1.2b", "--shape", "decode_32k", "--both-meshes"])
 DRYRUN_TIMEOUT_S = 600
 
+# leaf_adam at moonlight.train8k's share (PERF.md §4): the vocabulary's first
+# eighth and 8 of the router's 64 experts; gradients of 1e-4 a element put the
+# norm near 5.3, so the clip (1.0) bites; the kernel within 1.3 x its bound
+LEAF_ADAM_VOCAB, LEAF_ADAM_EXPERTS = 20480, 8
+LEAF_ADAM_G_SCALE = 1e-4
+LEAF_ADAM_BOUND_X = 1.3
+
 # dense peaks by card (NVIDIA data sheets): f32 FMA FLOP/s, HBM bytes/s,
 # bf16 tensor-core FLOP/s
 PEAKS = (("H100 PCIe", 51.2e12, 2.0e12, 756e12),
@@ -418,12 +435,14 @@ def phase_device(src: Path = SRC):
 
 
 def phase_build(report: bool = True) -> None:
-    from repro_torch.kernels.flash_attention import build as fa_build
-    from repro_torch.kernels.fused_qnet import build as fq_build
-    from repro_torch.kernels.packed_qnet import build as pq_build
-    from repro_torch.kernels.ssd_scan import build as ss_build
-    from repro_torch.kernels.stacked_adam import build as sa_build
-    modules = (fq_build, pq_build, fa_build, ss_build, sa_build)
+    """Build every kernel source the tree on the path has (``--compare``
+    may point at an older tree, without the newer kernels)."""
+    import importlib
+    import importlib.util
+    names = ("fused_qnet", "packed_qnet", "flash_attention", "ssd_scan",
+             "stacked_adam", "leaf_adam")
+    modules = [importlib.import_module(f"repro_torch.kernels.{n}.build") for n in names
+               if importlib.util.find_spec(f"repro_torch.kernels.{n}") is not None]
     builds = [m.nvcc_build() for m in modules]           # one per source
     t0 = time.perf_counter()
     for b in builds:
@@ -788,6 +807,168 @@ def phase_stacked_adam(peak) -> list[dict]:
           f"call), library "
           f"(torch._foreach_* in place, no clip) {row['library_ms']:.4f} ms",
           flush=True)
+    return [row]
+
+
+def _share_tree(device: str = "cuda"):
+    """The leaves' shapes and types of moonlight.train8k's share of
+    Moonlight-16B-A3B: 8 of its 64 routed experts, an eighth of the
+    vocabulary, bf16 beside the f32 norms, router and bias."""
+    import dataclasses
+
+    from repro_torch.checkpoint.checkpoint import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.models import abstract_params
+
+    base = get_config("moonlight-16b-a3b")
+    cfg = dataclasses.replace(base, vocab=LEAF_ADAM_VOCAB, dtype="bfloat16",
+                              moe=dataclasses.replace(
+                                  base.moe, expert_share=(0, LEAF_ADAM_EXPERTS)))
+    return [(tuple(t.shape), t.dtype) for t in tree_leaves(abstract_params(cfg))]
+
+
+def _leaf_state(leaves, gen, g_scale, *, zero=(), offset=0):
+    """Seeded leaf-Adam inputs on the card for ``leaves`` [(shape, dtype)]:
+    parameters, gradients (``g_scale`` x N(0, 1), zero on the leaves in
+    ``zero``), moments as after a few steps.  ``offset`` > 0 lays every
+    tensor out at that many elements into a buffer of its own: contiguous,
+    but not 16-byte aligned."""
+    import torch
+
+    def make(shape, dtype, scale, square=False):
+        x = scale * torch.randn(shape, generator=gen, device="cuda")
+        x = (x.square() if square else x).to(dtype)
+        if offset:
+            buf = torch.empty(x.numel() + offset, dtype=dtype, device="cuda")
+            buf[offset:].copy_(x.reshape(-1))
+            x = buf[offset:].view(shape)
+        return x
+    p = [make(s, d, 0.02) for s, d in leaves]
+    g = [make(s, d, 0.0 if k in zero else g_scale) for k, (s, d) in enumerate(leaves)]
+    m = [make(s, torch.float32, 1e-4) for s, _ in leaves]
+    v = [make(s, torch.float32, 1e-4, square=True) for s, _ in leaves]
+    return p, g, m, v
+
+
+def phase_leaf_adam(peak) -> list[dict]:
+    """``leaf_adam`` (the LM step's in-place Adam) against its plain version
+    on the card, bit for bit, the plain version taking the kernel's norm
+    (``norm_f64``): mixed bf16 / f32 leaves of odd sizes, the clip biting
+    (one gradient zero) and idle, every gradient zero, no clip with weight
+    decay, leaves that are not 16-byte aligned, 150 leaves (three tables);
+    with the clip idle also ``optim/adam.py``'s ``update`` + ``apply_updates``
+    bit for bit.  At the share's 2.78 B leaves: a rerun bit-identical, the
+    plain version bit-equal, the norm's gap to ``global_norm``, and the
+    kernel's, the bound's and the plain steps' times."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.leaf_adam.ops import leaf_adam
+    from repro_torch.kernels.leaf_adam.ref import leaf_adam_ref, norm_f64
+    from repro_torch.optim.adam import (OptState, adam, apply_updates, global_norm,
+                                        step_scalars)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    lr = 1e-4
+    _, lr_t, bc1, bc2 = step_scalars(
+        torch.tensor(3, dtype=torch.int32, device="cuda"),
+        lambda s: torch.tensor(lr, dtype=f32, device="cuda"), 0.9, 0.999)
+    hp = dict(lr_t=lr_t, bc1=bc1, bc2=bc2, b1=0.9, b2=0.999, eps=1e-8)
+    copy = lambda st: [[t.clone() for t in ts] for ts in (st[0], st[2], st[3])]
+    same = lambda a, b: all(torch.equal(x, y) for xs, ys in zip(a, b)
+                            for x, y in zip(xs, ys))
+    odd = [((7, 3), bf), ((1,), f32), ((1000,), bf), ((5, 13, 3), f32),
+           ((4099,), bf), ((2, 2, 2, 2, 3), bf), ((333, 17), f32), ((65536 + 5,), bf)]
+    sizes = torch.randint(1, 3000, (150,), generator=torch.Generator().manual_seed(3))
+    many = [((int(n),), bf if k % 3 else f32) for k, n in enumerate(sizes)]
+    cases = (("odd sizes, clip biting, one gradient zero", odd, 1.0,
+              dict(clip=1.0), (2,), 0),
+             ("odd sizes, clip idle", odd, 1e-4, dict(clip=1.0), (), 0),
+             ("every gradient zero", odd, 1.0, dict(clip=1.0), range(len(odd)), 0),
+             ("no clip, weight decay 0.01", odd, 1.0,
+              dict(clip=None, weight_decay=0.01), (), 0),
+             ("not 16-byte aligned, clip biting", odd, 1.0, dict(clip=1.0), (), 1),
+             ("150 leaves (3 tables), clip biting", many, 1.0, dict(clip=1.0), (5,), 0))
+    for name, leaves, g_scale, kw, zero, offset in cases:
+        st = _leaf_state(leaves, gen, g_scale, zero=set(zero), offset=offset)
+        a, b = copy(st), copy(st)
+        leaf_adam(a[0], st[1], a[1], a[2], **hp, **kw)
+        leaf_adam_ref(b[0], st[1], b[1], b[2], **hp, **kw, norm=norm_f64)
+        torch.cuda.synchronize()
+        if not same(a, b):
+            bad = [k for k, (x, y) in enumerate(zip(a[0], b[0])) if not torch.equal(x, y)]
+            fail(f"leaf_adam ({name}): the kernel differs from its plain version "
+                 f"(parameter leaves {bad[:10]})")
+        if g_scale < 1.0:                       # the clip idle: optim/adam.py's step
+            state = OptState(step=torch.tensor(3, dtype=torch.int32, device="cuda"),
+                             mu=[t.clone() for t in st[2]], nu=[t.clone() for t in st[3]])
+            updates, state = adam(lr, clip_norm=1.0).update(st[1], state, st[0])
+            if not same(a, (apply_updates(st[0], updates), state.mu, state.nu)):
+                fail(f"leaf_adam ({name}): the kernel differs from optim/adam.py's "
+                     f"update + apply_updates")
+    print(f"leaf_adam: {len(cases)} cases bit-equal to the plain version (the "
+          f"kernel's f64 norm), the clip-idle case to optim/adam.py's update + "
+          f"apply_updates", flush=True)
+
+    # the share's leaves: state made twice from one seed (two copies fit)
+    leaves = _share_tree()
+    n = sum(math.prod(s) for s, _ in leaves)
+    grads = _leaf_state(leaves, torch.Generator(device="cuda").manual_seed(12),
+                        LEAF_ADAM_G_SCALE)[1]
+
+    def made():
+        p, _, m, v = _leaf_state(leaves, torch.Generator(device="cuda").manual_seed(13),
+                                 0.0)
+        return [p, m, v]
+    a = made()
+    leaf_adam(a[0], grads, a[1], a[2], **hp, clip=1.0)
+    b = made()
+    leaf_adam(b[0], grads, b[1], b[2], **hp, clip=1.0)
+    torch.cuda.synchronize()
+    if not same(a, b):
+        fail("leaf_adam: two launches on the share's leaves differ")
+    del b
+    b = made()
+    leaf_adam_ref(b[0], grads, b[1], b[2], **hp, clip=1.0, norm=norm_f64)
+    if not same(a, b):
+        fail("leaf_adam: the share's leaves differ from the plain version")
+    del b
+    torch_norm, own = float(global_norm(grads)), float(norm_f64(grads))
+    ulps = abs(torch_norm - own) / float(np.spacing(np.float32(own)))
+    print(f"leaf_adam: the share's {len(leaves)} leaves ({n:,} elements): rerun "
+          f"bit-identical, bit-equal to the plain version; clip 1.0 biting (norm "
+          f"{own:.9g}); optim/adam.py's global_norm {torch_norm:.9g}, "
+          f"{abs(torch_norm - own) / own:.3e} relative, {ulps:.1f} f32 ulps",
+          flush=True)
+
+    nbytes = sum(math.prod(s) * (24 if d == bf else 32) for s, d in leaves)
+    row = {"name": "leaf_adam", "route": "cuda",
+           "source": "src/repro_torch/kernels/leaf_adam/csrc/leaf_adam.cu",
+           "replaces": None, "leaves": len(leaves), "elements": n,
+           "launches": None,
+           "ms": cuda_ms(lambda: leaf_adam(a[0], grads, a[1], a[2], **hp, clip=1.0), 10),
+           "bound_ms": nbytes / peak[1] * 1e3, "bound_by": "bytes",
+           "gbytes": nbytes / 1e9}
+    row["plain_ms"] = cuda_ms(lambda: leaf_adam_ref(a[0], grads, a[1], a[2], **hp,
+                                                    clip=1.0), 3, warmup=1)
+    opt = adam(lr, clip_norm=1.0)
+    state = OptState(step=torch.tensor(3, dtype=torch.int32, device="cuda"),
+                     mu=a[1], nu=a[2])
+
+    def functional():                  # the parent's step: new moments and leaves
+        updates, _ = opt.update(grads, state, a[0])
+        apply_updates(a[0], updates)
+    row["adam_py_ms"] = cuda_ms(functional, 3, warmup=1)
+    print(f"leaf_adam: the share's leaves: kernel {row['ms']:.4f} ms "
+          f"({nbytes / row['ms'] / 1e6:.1f} GB/s, {row['ms'] / row['bound_ms']:.3f} x "
+          f"the bound), bound {row['bound_ms']:.4f} ms (bytes: {nbytes / 1e9:.2f} GB), "
+          f"plain in place {row['plain_ms']:.4f} ms, optim/adam.py's update + "
+          f"apply_updates {row['adam_py_ms']:.4f} ms", flush=True)
+    if row["ms"] > LEAF_ADAM_BOUND_X * row["bound_ms"]:
+        fail(f"leaf_adam: {row['ms']:.4f} ms is more than {LEAF_ADAM_BOUND_X} x its "
+             f"bound {row['bound_ms']:.4f} ms")
+    del a, grads, state
+    torch.cuda.empty_cache()
     return [row]
 
 
@@ -2461,6 +2642,13 @@ def _lm_train_card_vs_cpu() -> None:
               f"and a microbatches=2 step", flush=True)
 
 
+def _clone_tree(tree):
+    """``tree`` with every leaf cloned (a train step consumes its trees)."""
+    from repro_torch.checkpoint.checkpoint import tree_leaves
+    from repro_torch.launch.steps import with_leaves
+    return with_leaves(tree, [t.clone() for t in tree_leaves(tree)])
+
+
 def _lm_train_full_width() -> dict:
     """zamba2-1.2b at full width, bf16, remat, through make_train_step.
     Returns each kernel's launches over the timed steps."""
@@ -2474,10 +2662,9 @@ def _lm_train_full_width() -> dict:
     from repro_torch.kernels.packed_qnet.ops import packed_qnet, packed_qnet_stacked
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
     from repro_torch.launch.steps import loss_and_grads, make_train_step
-    from repro_torch.models import count_params, init_params
-    from repro_torch.optim.adam import apply_updates
-
+    from repro_torch.kernels.leaf_adam.ops import leaf_adam
     from repro_torch.kernels.stacked_adam.ops import stacked_adam
+    from repro_torch.models import count_params, init_params
 
     kernels = (fused_qnet, packed_qnet_stacked, packed_qnet, flash_attention,
                ssd_scan, stacked_adam)
@@ -2489,6 +2676,11 @@ def _lm_train_full_width() -> dict:
     step, opt = make_train_step(cfg)
     state = opt.init(params)
     batch = _lm_batch(cfg.vocab, B, S, "cuda")
+    # the step consumes its trees: clones for the rerun and the final check
+    init_tree = _clone_tree(params)
+    twin = (_clone_tree(params), state._replace(
+        step=state.step.clone(), mu=[t.clone() for t in state.mu],
+        nu=[t.clone() for t in state.nu]))
     was_deterministic = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
@@ -2499,7 +2691,7 @@ def _lm_train_full_width() -> dict:
             p1, s1, l1 = step(params, state, batch)          # warm
             torch.cuda.synchronize()
             warm_s = time.perf_counter() - t0
-            p1b, s1b, l1b = step(params, state, batch)       # its rerun
+            p1b, s1b, l1b = step(*twin, batch)               # its rerun
             torch.cuda.synchronize()
             same = torch.equal(l1, l1b) and all(
                 torch.equal(a, b) for a, b in zip(
@@ -2512,14 +2704,14 @@ def _lm_train_full_width() -> dict:
                 fail(f"lm_train: the rerun of a {LM_ARCH} train step is not "
                      f"bit-identical: loss {float(l1)!r} vs {float(l1b)!r}, "
                      f"parameter leaves (index, max abs) {diffs[:8]}")
-            del state, p1b, s1b, l1b
+            del state, twin, p1b, s1b, l1b
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()     # from here: one training loop
             firsts = [float(m.abs().max()) for m in s1.mu]
             if not all(math.isfinite(m) and m > 0 for m in firsts):
                 fail(f"lm_train: a {LM_ARCH} leaf got no finite nonzero gradient: "
                      f"{firsts}")
-            for k in kernels:
+            for k in kernels + (leaf_adam,):
                 k.launches = 0
             cur, st, losses, ms = p1, s1, [float(l1)], []
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -2531,18 +2723,21 @@ def _lm_train_full_width() -> dict:
                 ms.append(start.elapsed_time(end))
                 losses.append(float(loss))
             launches = {k.__name__: k.launches for k in kernels}
+            fused = leaf_adam.launches
             peak = torch.cuda.max_memory_allocated() / 2**30
             messages = sorted({str(w.message).split("\n")[0][:160] for w in caught})
     finally:
         torch.use_deterministic_algorithms(was_deterministic)
-    if any(launches.values()):
-        fail(f"lm_train: {LM_ARCH} train steps launched kernels: {launches}")
+    if any(launches.values()) or fused != LM_TRAIN_STEPS:
+        fail(f"lm_train: {LM_ARCH} train steps launched kernels {launches} and "
+             f"leaf_adam {fused} times (want 0 and {LM_TRAIN_STEPS}: its Adam)")
+    launches["leaf_adam"] = fused
     if not all(math.isfinite(l) for l in losses):
         fail(f"lm_train: {LM_ARCH} train losses are not finite: {losses}")
-    unchanged = [i for i, (a, b) in enumerate(zip(tree_leaves(params), tree_leaves(cur)))
+    unchanged = [i for i, (a, b) in enumerate(zip(tree_leaves(init_tree), tree_leaves(cur)))
                  if torch.equal(a, b)]
-    norms = [i for i in unchanged if tree_leaves(params)[i].dtype == torch.bfloat16
-             and bool((tree_leaves(params)[i].abs() == 1).all())]
+    norms = [i for i in unchanged if tree_leaves(init_tree)[i].dtype == torch.bfloat16
+             and bool((tree_leaves(init_tree)[i].abs() == 1).all())]
     if unchanged != norms:
         fail(f"lm_train: {LM_ARCH} leaves {sorted(set(unchanged) - set(norms))} did "
              f"not change in {1 + LM_TRAIN_STEPS} steps")
@@ -2558,25 +2753,26 @@ def _lm_train_full_width() -> dict:
           f"all bf16 norm scales of 1.0", flush=True)
     for m in messages:
         print(f"lm_train: warning under deterministic algorithms: {m}", flush=True)
-    # the step's two halves apart: loss and gradients, then Adam and apply
+    # the step's two halves apart: loss and gradients, then Adam in place
     torch.cuda.reset_peak_memory_stats()
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     marks[0].record()
     _, grads = loss_and_grads(cur, cfg, batch)
     marks[1].record()
     leaves = tree_leaves(cur)
-    apply_updates(leaves, opt.update(grads, st, leaves)[0])
+    st = opt.update_in_place(grads, st, leaves)
     marks[2].record()
     torch.cuda.synchronize()
     print(f"lm_train: one {LM_ARCH} step split: loss and gradients "
-          f"{marks[0].elapsed_time(marks[1]):.2f} ms, Adam (clip, moments) and "
-          f"apply {marks[1].elapsed_time(marks[2]):.2f} ms (CUDA events); peak "
+          f"{marks[0].elapsed_time(marks[1]):.2f} ms, Adam in place (leaf_adam: "
+          f"clip, moments, update) {marks[1].elapsed_time(marks[2]):.2f} ms (CUDA "
+          f"events); peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB with the "
           f"parameters, moments and initial parameters resident", flush=True)
     del grads, leaves
     _profile_top(lambda: step(cur, st, batch), top=15,
                  what=f"lm_train: torch.profiler over one {LM_ARCH} train step")
-    del params, p1, s1, cur, st
+    del params, init_tree, p1, s1, cur, st
     torch.cuda.empty_cache()
     return launches
 
@@ -2962,6 +3158,7 @@ def main() -> None:
     rows = phase_kernels(peak)
     stacked_rows = phase_stacked_kernel(peak)
     adam_rows = phase_stacked_adam(peak)
+    leaf_rows = phase_leaf_adam(peak)
     launches = phase_serve()
     for r in rows:
         r["launches"] = launches
@@ -2992,7 +3189,7 @@ def main() -> None:
     for r in stacked_rows:
         r["launches_verify"] = pipe["packed_qnet_stacked"]
         r["launches_quickstart"] = pipe["quickstart_packed"]
-    rows += stacked_rows + adam_rows
+    rows += stacked_rows + adam_rows + leaf_rows
     rows += phase_packed_kernel(peak)
     lm_rows, path_ms = phase_lm_kernels(peak)
     launches = phase_lm(path_ms, card)

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), one per Pallas kernel of
-``repro.kernels``, and ``stacked_adam``, the learner's fused Adam over its
-stacked workers (the reference leaves that to XLA).
+``repro.kernels``; ``stacked_adam``, the learner's fused Adam over its
+stacked workers; and ``leaf_adam``, the LM train step's fused, in-place Adam
+over its leaves (the reference leaves both to XLA).
 
 Each kernel ships as ``<name>/{csrc/<name>.cu, build.py, ops.py, ref.py}``:
 the CUDA source; its ``nvcc`` build into ``build/repro_torch/`` at the

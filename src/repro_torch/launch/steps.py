@@ -15,13 +15,21 @@ does, and keeps the moments as lists in that order.  Gradients come from
 ``torch.autograd.grad`` and keep each leaf's type (bf16 leaves get bf16
 gradients, as in JAX).
 
+The LM train step consumes its ``params`` and ``opt_state``, as the
+reference's donates them (``donate_argnums=(0, 1)``): Adam with f32 moments
+steps every leaf in place (``Optimizer.update_in_place``: one
+``kernels/leaf_adam`` launch on the card, its plain version elsewhere), so
+the step holds one set of parameters and moments, and the returned trees
+hold the tensors passed in.
+
 The mla_moe family's step also moves each MoE layer's selection bias
-after Adam, outside autograd, from the loads its forward counted
-(``models.moe.update_bias``, DeepSeek-V3 §2.1.2); with a ``recorder``
-(``core.spans.SpanRecorder``) its forward's parts are spanned (``lm.mla``,
-``lm.moe.route`` / ``.experts`` / ``.combine`` / ``.shared``), the step's
-``lm.backward`` and ``lm.adam``, and counted (``lm.steps``, ``lm.tokens``,
-``lm.moe.local_rows``, ``lm.moe.max_local_rows``).
+after Adam, outside autograd and in place, from the loads its forward
+counted (``models.moe.update_bias``, DeepSeek-V3 §2.1.2); with a
+``recorder`` (``core.spans.SpanRecorder``) its forward's parts are spanned
+(``lm.mla``, ``lm.moe.route`` / ``.experts`` / ``.combine`` / ``.shared``),
+the step's ``lm.backward`` and ``lm.adam``, and counted (``lm.steps``,
+``lm.tokens``, ``lm.moe.local_rows``, ``lm.moe.max_local_rows``,
+``lm.adam.fused``).
 
 The qnet family (``damoldqn``) builds the double-DQN step instead, over the
 parameter tree ``{"layers": [{"w", "b"}, ...]}``: ``make_train_step`` ->
@@ -113,12 +121,11 @@ def _split(batch: dict, mb: int) -> list[dict]:
              for k, v in batch.items()} for i in range(mb)]
 
 
-def _moved_bias(params: dict, cfg: ArchConfig, loads: list[torch.Tensor]) -> dict:
-    """``params`` with ``blocks.moe.bias`` [L, E] moved by the step's loads
-    (one ``[E]`` per MoE layer, summed over microbatches)."""
-    moe = params["blocks"]["moe"]
-    bias = update_bias(moe["bias"], torch.stack(loads), cfg.moe.bias_rate)
-    return {**params, "blocks": {**params["blocks"], "moe": {**moe, "bias": bias}}}
+def _move_bias(params: dict, cfg: ArchConfig, loads: list[torch.Tensor]) -> None:
+    """Move ``blocks.moe.bias`` [L, E] in place by the step's loads (one
+    ``[E]`` per MoE layer, summed over microbatches)."""
+    bias = params["blocks"]["moe"]["bias"]
+    bias.copy_(update_bias(bias, torch.stack(loads), cfg.moe.bias_rate))
 
 
 def make_train_step(cfg: ArchConfig, optimizer: Optimizer | None = None,
@@ -128,6 +135,16 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer | None = None,
     opt.init(params)``.  ``stats`` (a ``models.moe.StepStats``, mla_moe
     only) receives the step's router loads, and its choices if it keeps
     them; its recorder is ``recorder``.
+
+    The step consumes ``params`` and ``opt_state``, on every device (the
+    reference's ``donate_argnums=(0, 1)``): where the optimizer has
+    ``update_in_place`` and the moments are f32, the returned trees hold
+    the same tensors, written in place, and the step counts
+    ``lm.adam.fused``; otherwise (``sgd``, moments of another type) Adam's
+    ``update`` and ``apply_updates`` return new leaves, and the selection
+    bias still moves in place.  A caller that compares with the state
+    before a step clones it first.  ``opt.init`` on CUDA parameters starts
+    the ``leaf_adam`` build in the background.
 
     With ``microbatches > 1`` the batch splits into that many microbatches,
     one backward each; the gradients accumulate in each parameter's type,
@@ -139,10 +156,19 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer | None = None,
     target_params, opt_state, batch)`` over the replay batch (``states``,
     ``rewards``, ``dones``, ``next_fps``, ``next_mask``)."""
     base = optimizer or make_optimizer(cfg)
-    opt = Optimizer(init=lambda params: base.init(tree_leaves(params)),
-                    update=base.update)
     if cfg.family == "qnet":
-        return _make_qnet_train_step(base), opt
+        return _make_qnet_train_step(base), Optimizer(
+            init=lambda params: base.init(tree_leaves(params)), update=base.update)
+
+    def init(params):
+        leaves = tree_leaves(params)
+        if base.update_in_place is not None and leaves and leaves[0].is_cuda:
+            from repro_torch.kernels.leaf_adam import build as leaf_adam_build
+            leaf_adam_build.nvcc_build().start()    # nvcc runs while the step warms
+        return base.init(leaves)
+
+    opt = Optimizer(init=init, update=base.update,
+                    update_in_place=base.update_in_place)
     mb = max(microbatches, 1)
     moving_bias = cfg.family == "mla_moe" and cfg.moe.bias_rate > 0
 
@@ -168,11 +194,16 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer | None = None,
             grads = [(g / mb).to(p.dtype) for g, p in zip(grads, leaves)]
             loss = loss / mb
         with stats.span("lm.adam"):
-            updates, opt_state = base.update(grads, opt_state, leaves)
-            del grads
-            params = with_leaves(params, apply_updates(leaves, updates))
+            if base.update_in_place is not None and all(
+                    m.dtype == torch.float32 for m in (*opt_state.mu, *opt_state.nu)):
+                opt_state = base.update_in_place(grads, opt_state, leaves)
+                stats.count("lm.adam.fused", 1)
+            else:
+                updates, opt_state = base.update(grads, opt_state, leaves)
+                del grads
+                params = with_leaves(params, apply_updates(leaves, updates))
         if moving_bias:
-            params = _moved_bias(params, cfg, loads)
+            _move_bias(params, cfg, loads)
         stats.count("lm.steps", 1)
         stats.count("lm.tokens", int(torch.as_tensor(batch["tokens"]).numel()))
         return params, opt_state, loss

@@ -233,6 +233,7 @@ def test_train_step_against_the_reference_step():
         for part in path[:-1]:
             node = node.setdefault(part, {})
         node[path[-1]] = v
+    before = {k: v.clone() for k, v in leaves_with_paths(params)}   # the step consumes params
     step, opt = make_train_step(cfg)
     stats = Moe.StepStats(keep_routes=True)
     new, state, loss = step(params, opt.init(params), batch, stats)
@@ -242,7 +243,6 @@ def test_train_step_against_the_reference_step():
     assert R.route_mismatch(torch.stack([stats.routes[i] for i in sorted(stats.routes)]),
                             ref["routes1"], cfg.moe.n_experts) == 0.0
     assert torch.equal(new["blocks"]["moe"]["bias"], ref["bias"])
-    before = dict(leaves_with_paths(params))
     for path, leaf in leaves_with_paths(new):
         node = tree
         for part in path:
